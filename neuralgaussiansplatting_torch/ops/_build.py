@@ -1,0 +1,86 @@
+"""Build and load the port's CUDA kernels: nvcc -> shared library -> ctypes.
+
+Each ``csrc/<name>.cu`` exports plain C functions and is compiled on first
+use into ``_build/lib<name>-<hash>.so``, keyed on the hash of the sources
+and flags, so a changed source rebuilds and an unchanged one loads at once.
+Several sources build in parallel, one nvcc each. Nothing here runs at
+import time; each kernel module caches its loaded library.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+# --fmad=false: keep every a*b+c rounded as two operations, as the JAX
+# kernels and the plain PyTorch versions round it (see csrc/*.cu)
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+              "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+              "--fmad=false", "-Xptxas", "-v")
+NVCC_TIMEOUT_S = 600
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    for cand in (os.path.join(home, "bin", "nvcc"), shutil.which("nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA kernels "
+                       "are built from csrc/ at first use")
+
+
+def _target(name: str) -> tuple[str, str]:
+    """(source path, library path) of kernel ``name``."""
+    src = os.path.join(CSRC, name + ".cu")
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for path in [src] + [os.path.join(CSRC, f) for f in headers]:
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return src, os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
+
+
+def build(names) -> dict[str, str]:
+    """Compile every kernel of ``names`` that is not built yet, all nvcc
+    processes at once. Returns {name: compiler output} (ptxas reports each
+    kernel's registers and shared memory) for the ones compiled."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = _nvcc()
+    procs = {}
+    try:
+        for name in names:
+            src, so = _target(name)
+            if os.path.exists(so):
+                continue
+            tmp = f"{so}.{os.getpid()}.tmp"
+            proc = subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-o", tmp, src],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            procs[name] = (proc, tmp, so)
+        logs = {}
+        for name, (proc, tmp, so) in procs.items():
+            out, _ = proc.communicate(timeout=NVCC_TIMEOUT_S)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed for {name}.cu:\n{out}")
+            os.replace(tmp, so)
+            logs[name] = out
+        return logs
+    finally:
+        for proc, tmp, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if os.path.exists(tmp):
+                os.remove(tmp)
+
+
+def load(name: str) -> ctypes.CDLL:
+    """Load the library of kernel ``name``, building it first if needed."""
+    build([name])
+    return ctypes.CDLL(_target(name)[1])

@@ -1,0 +1,169 @@
+"""Public rasterization API (preprocess -> bin -> blend -> assemble).
+
+Port of ``ops/rasterize.py`` for the forward render. Backends:
+
+- ``"seq"``: 32x32 tiles, 128-wide chunks, blended by kernel K1 on a CUDA
+  device (its plain version on the CPU). Other tile or chunk shapes raise
+  ValueError; they are never silently rerouted.
+- ``"xla"``: the plain scan oracle of ``ops/blend.py``, on any device.
+- ``"pallas"``: the 16x16 lane-layout kernels (K4/K5), not ported yet.
+
+``means2d_offset`` shifts the projected centres by offset * (W/2, H/2)
+pixels, the reference's screen-space densification convention.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import torch
+
+from neuralgaussiansplatting_torch.ops import binning
+from neuralgaussiansplatting_torch.ops import blend as blend_plain
+from neuralgaussiansplatting_torch.ops import blend_seq
+from neuralgaussiansplatting_torch.ops import preprocess as pp
+from neuralgaussiansplatting_torch.ops import projection as proj
+
+
+@dataclasses.dataclass(frozen=True)
+class RasterizeSettings:
+    """Static rasterizer configuration (see the JAX package's field notes)."""
+
+    block_x: int = 32
+    block_y: int = 32
+    capacity: int = 1 << 18        # instance expansion/sort domain
+    max_per_tile: int = 1024       # per-tile blend cap
+    chunk: int = 128               # binning alignment / blend chunk
+    backend: str = "seq"           # "seq" | "xla" ("pallas" not ported yet)
+    scale_modifier: float = 1.0
+    fast_sort: bool = False        # packed [tile|depth] sort key
+    tight_culling: bool = False    # opacity-adaptive per-axis rects
+    track_contrib: bool = True     # False => n_contrib output is zeros
+    packed_capacity: int | None = None  # aligned output buffer; None =>
+                                        # capacity
+    precise_cull: bool = True      # per-instance diagonal coverage cull
+    expand: str = "scatter"        # "scatter" | "dense" instance expansion
+    dense_cap: int = 16            # per-gaussian slot cap in dense mode
+
+    def tiles_for(self, width: int, height: int):
+        return (
+            (width + self.block_x - 1) // self.block_x,
+            (height + self.block_y - 1) // self.block_y,
+        )
+
+
+def make_settings(backend: str = "seq", **kw) -> RasterizeSettings:
+    """Backend-appropriate settings: seq takes 32x32 tiles and 128-wide
+    chunks; the others 16x16 tiles, with chunk 128 for pallas and 32 for the
+    scan oracle."""
+    if backend == "seq":
+        kw.setdefault("block_x", 32)
+        kw.setdefault("block_y", 32)
+        kw.setdefault("chunk", 128)
+    else:
+        kw.setdefault("block_x", 16)
+        kw.setdefault("block_y", 16)
+        kw.setdefault("chunk", 128 if backend == "pallas" else 32)
+    return RasterizeSettings(backend=backend, **kw)
+
+
+class RenderOutput(NamedTuple):
+    color: torch.Tensor          # (3, H, W) composited image
+    final_t: torch.Tensor        # (H, W)
+    n_contrib: torch.Tensor      # (H, W) int32
+    radii: torch.Tensor          # (N,) int32 (0 => culled)
+    num_rendered: torch.Tensor   # () int32 true instance count
+    max_per_tile: torch.Tensor   # () int32 max true per-tile load
+    aligned_demand: torch.Tensor  # () int32 packed-buffer demand
+    dropped: torch.Tensor        # () int32 instances lost to caps/truncation
+    culled: torch.Tensor         # () int32 instances removed by precise cull
+
+
+def mark_visible(means3d: torch.Tensor, cam: pp.CameraParams) -> torch.Tensor:
+    """Frustum visibility: view-space z > 0.2."""
+    p_view = proj.transform_points_4x3(means3d, cam.view)
+    return p_view[..., 2] > 0.2
+
+
+def rasterize(
+    means3d: torch.Tensor,
+    scales: torch.Tensor,
+    rotations: torch.Tensor,
+    opacities: torch.Tensor,
+    shs: torch.Tensor,
+    sh_degree: int,
+    cam: pp.CameraParams,
+    bg: torch.Tensor,
+    settings: RasterizeSettings = RasterizeSettings(),
+    means2d_offset: torch.Tensor | None = None,
+    cov3d_precomp: torch.Tensor | None = None,
+    colors_precomp: torch.Tensor | None = None,
+) -> RenderOutput:
+    """Render N Gaussians for one camera.
+
+    ``opacities`` (N,) and ``scales`` (N, 3) are activated; ``shs`` is
+    (N, K, 3) or flat (N, 3K); ``bg`` (3,).
+    """
+    backend = settings.backend
+    if backend == "pallas":
+        raise NotImplementedError(
+            "backend='pallas' (16x16 kernels K4/K5) is not ported yet: "
+            "ROADMAP.md queue 2, K4/K5; use backend='seq' or 'xla'")
+    if backend not in ("seq", "xla"):
+        raise ValueError(f"unknown backend {backend!r}")
+    if backend == "seq" and (settings.block_x != 32 or settings.block_y != 32
+                             or settings.chunk != 128):
+        raise ValueError(
+            "backend='seq' takes 32x32 tiles and chunk 128, got "
+            f"{settings.block_x}x{settings.block_y} tiles, chunk "
+            f"{settings.chunk}; use make_settings('seq') or backend='xla'")
+    tiles_x, tiles_y = settings.tiles_for(cam.width, cam.height)
+
+    pre = pp.preprocess_gaussians(
+        means3d, scales, rotations, opacities, shs, sh_degree, cam,
+        settings.block_x, settings.block_y, settings.scale_modifier,
+        cov3d_precomp=cov3d_precomp, colors_precomp=colors_precomp,
+        tight=settings.tight_culling,
+    )
+    if means2d_offset is not None:
+        shift = means2d_offset * torch.tensor(
+            [cam.width * 0.5, cam.height * 0.5], dtype=torch.float32,
+            device=means2d_offset.device)
+        pre = pre._replace(means2d=pre.means2d + shift)
+
+    inst = binning.bin_gaussians(
+        pre, tiles_x, tiles_y, settings.capacity, settings.max_per_tile,
+        settings.chunk, pack_keys=settings.fast_sort,
+        packed_capacity=settings.packed_capacity,
+        precise_cull=settings.precise_cull,
+        block_x=settings.block_x, block_y=settings.block_y,
+        width=cam.width, height=cam.height,
+        expand=settings.expand, dense_cap=settings.dense_cap)
+
+    blend_args = (inst, pre.means2d, pre.conic, pre.opacity, pre.rgb,
+                  tiles_x, tiles_y, settings.block_x, settings.block_y,
+                  settings.max_per_tile, settings.chunk)
+    if backend == "seq":
+        res = blend_seq.blend_tiles_seq(
+            *blend_args, track_contrib=settings.track_contrib)
+    else:
+        res = blend_plain.blend_tiles(*blend_args)
+
+    def assemble(per_tile):
+        return blend_plain.assemble_image(
+            per_tile, tiles_x, tiles_y, settings.block_x, settings.block_y,
+            cam.width, cam.height)
+
+    color = res.color + res.final_t[..., None] * bg[None, None, :]
+    return RenderOutput(
+        color=assemble(color).permute(2, 0, 1),
+        final_t=assemble(res.final_t),
+        n_contrib=assemble(res.n_contrib),
+        radii=pre.radii,
+        num_rendered=inst.num_rendered,
+        max_per_tile=inst.max_tile_load,
+        aligned_demand=inst.aligned_demand,
+        dropped=inst.dropped,
+        culled=inst.culled,
+    )

@@ -1,0 +1,144 @@
+"""PyTorch port vs the JAX package: the blend stage.
+
+The plain version of K1 (``blend_tiles_seq_reference``, what the seq backend
+runs on the CPU) is held against the JAX seq kernel in interpret mode on the
+same ``Instances`` and attributes, with the gates of tests/test_blend_seq.py:
+color and final T to atol 5e-5, n_contrib equal on >= 99.9 % of pixels. K1
+itself runs only on a GPU (tests/test_torch_cuda.py).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from neuralgaussiansplatting_tpu.ops import blend as jblend
+from neuralgaussiansplatting_tpu.ops import blend_seq as jseq
+from neuralgaussiansplatting_tpu.ops import binning as jbin
+from neuralgaussiansplatting_torch.ops import binning as tbin
+from neuralgaussiansplatting_torch.ops import blend as tblend
+from neuralgaussiansplatting_torch.ops import blend_pallas as tpack
+from neuralgaussiansplatting_torch.ops import blend_seq as tseq
+from neuralgaussiansplatting_torch.ops import preprocess as tpp
+from neuralgaussiansplatting_torch.ops import rasterize as trast
+
+from scenes import make_camera, random_gaussians
+from torch_parity import port_camera, to_torch
+
+torch.set_num_threads(2)
+
+_jax_seq = jax.jit(jseq.blend_tiles_seq, static_argnums=(5, 6, 7, 8, 9))
+_jax_scan = jax.jit(jblend.blend_tiles, static_argnums=(5, 6, 7, 8, 9, 10))
+
+
+def _port_stage_inputs(n, deg, seed, opacity=None, block=32, chunk=128):
+    """Preprocess + bin on the port (CPU): the (Instances, attrs) both blend
+    implementations are fed."""
+    cam = make_camera(W=64, H=64)
+    means, scales, rot, opac, shs = random_gaussians(n=n, deg=deg, seed=seed)
+    if opacity is not None:
+        opac = np.full_like(opac, opacity)
+    pre = tpp.preprocess_gaussians(
+        *map(to_torch, (means, scales, rot, opac, shs)), deg,
+        port_camera(cam), block, block, tight=True)
+    t = 64 // block
+    inst = tbin.bin_gaussians(pre, t, t, 1 << 13, 1024, chunk,
+                              pack_keys=True, precise_cull=True,
+                              block_x=block, block_y=block, width=64,
+                              height=64)
+    attrs = (pre.means2d, pre.conic, pre.opacity, pre.rgb)
+    return inst, attrs, t
+
+
+def _as_jax(inst, attrs):
+    """(Instances, *attrs) as JAX arrays."""
+    return (jbin.Instances(*(jnp.asarray(x.numpy()) for x in inst)),
+            *(jnp.asarray(a.numpy()) for a in attrs))
+
+
+def _assert_blend_close(got, want, atol=5e-5):
+    np.testing.assert_allclose(got.color.numpy(), np.asarray(want.color),
+                               atol=atol)
+    np.testing.assert_allclose(got.final_t.numpy(), np.asarray(want.final_t),
+                               atol=atol)
+    agree = (got.n_contrib.numpy() == np.asarray(want.n_contrib)).mean()
+    assert agree >= 0.999, agree
+
+
+@pytest.mark.parametrize("scene", ["default", "early_stop"])
+def test_seq_plain_version_matches_jax_seq_kernel(scene):
+    """K1's plain version vs the JAX seq kernel (interpret mode); the
+    early-stop scene (opacity 0.995) drives pixels below T = 1e-4."""
+    if scene == "default":
+        inst, attrs, t = _port_stage_inputs(120, 1, 3)
+    else:
+        inst, attrs, t = _port_stage_inputs(250, 0, 5, opacity=0.995)
+    got = tseq.blend_tiles_seq(inst, *attrs, t, t, 32, 32, 1024)
+    want = _jax_seq(*_as_jax(inst, attrs), t, t, 32, 32, 1024)
+    _assert_blend_close(got, want)
+    if scene == "early_stop":
+        assert (got.final_t.numpy() < 2e-4).any()
+
+
+def test_scan_oracle_matches_jax_scan():
+    inst, attrs, t = _port_stage_inputs(150, 1, 9, block=16, chunk=32)
+    got = tblend.blend_tiles(inst, *attrs, t, t, 16, 16, 256, 32)
+    want = _jax_scan(*_as_jax(inst, attrs), t, t, 16, 16, 256, 32)
+    _assert_blend_close(got, want)
+    np.testing.assert_array_equal(
+        tblend.assemble_image(got.color, t, t, 16, 16, 60, 50).numpy(),
+        np.asarray(jblend.assemble_image(jnp.asarray(got.color.numpy()),
+                                         t, t, 16, 16, 60, 50)))
+
+
+def test_seq_inference_mode_track_contrib_off():
+    inst, attrs, t = _port_stage_inputs(80, 1, 11)
+    on = tseq.blend_tiles_seq(inst, *attrs, t, t, 32, 32, 1024)
+    off = tseq.blend_tiles_seq(inst, *attrs, t, t, 32, 32, 1024,
+                               track_contrib=False)
+    np.testing.assert_array_equal(off.color.numpy(), on.color.numpy())
+    np.testing.assert_array_equal(off.final_t.numpy(), on.final_t.numpy())
+    assert not off.n_contrib.any() and on.n_contrib.any()
+
+
+def test_padding_slots_read_the_zero_sentinel():
+    inst, attrs, _ = _port_stage_inputs(60, 1, 2)
+    packed = tpack.pack_gather(tpack.pack_instance_attrs_t(*attrs), inst.gid)
+    assert packed.shape == (tpack.PROWS, inst.gid.shape[0])
+    assert not packed[:, ~inst.valid].any()
+    assert (packed[:, inst.valid] != 0).any(dim=1).all()
+
+
+@pytest.mark.parametrize("kw, exc", [
+    (dict(backend="seq", block_x=16, block_y=16), ValueError),
+    (dict(backend="seq", chunk=64), ValueError),
+    (dict(backend="pallas"), NotImplementedError),
+])
+def test_unported_or_mismatched_backends_raise(kw, exc):
+    cam = port_camera(make_camera(W=32, H=32))
+    arrays = map(to_torch, random_gaussians(n=20, deg=0, seed=1))
+    backend = kw.pop("backend")
+    with pytest.raises(exc):
+        trast.rasterize(*arrays, 0, cam, torch.zeros(3),
+                        trast.make_settings(backend, **kw))
+
+
+def test_seq_blend_refuses_tensors_that_need_grad():
+    inst, attrs, t = _port_stage_inputs(40, 1, 4)
+    means2d = attrs[0].clone().requires_grad_()
+    with pytest.raises(NotImplementedError):
+        tseq.blend_tiles_seq(inst, means2d, *attrs[1:], t, t, 32, 32, 1024)
+
+
+def test_k1_wrapper_validates_inputs():
+    packed = torch.zeros((9, 256))
+    start = torch.zeros(4, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        tseq.blend_seq_fwd(packed.double(), start, start, 2)
+    with pytest.raises(ValueError):
+        tseq.blend_seq_fwd(packed, start.long(), start, 2)
+    with pytest.raises(ValueError):
+        tseq.blend_seq_fwd(packed[:8], start, start, 2)
+    with pytest.raises(ValueError):
+        tseq.blend_seq_fwd(packed, start, start, 3)
