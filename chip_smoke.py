@@ -2,20 +2,23 @@
 
     python3 chip_smoke.py
 
-Builds every CUDA kernel of the forward render path from csrc/, holds each
-against its plain PyTorch version at the shapes of the bench workload
-(800x800, 100k Gaussians, SH degree 3, the bench rasterizer settings), then
-serves the path as a user would: a demo cloud saved to PLY, loaded back and
-rendered from four cameras through ``gaussian_renderer.render``, checking
-that every render went through the kernels. It prints one JSON line of
-per-kernel numbers, the card's name and power limit, and as its last line
-``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
-that line. Needs a CUDA device and nvcc (CUDA_HOME or /usr/local/cuda);
-imports nothing of JAX.
+Builds every CUDA kernel of the render and training paths from csrc/ (K1,
+the tile blend, and K2, its backward), holds each against its plain
+PyTorch version at the shapes of the bench workload (800x800, 100k
+Gaussians, SH degree 3, the bench rasterizer settings), then drives the
+paths as a user would: a demo cloud saved to PLY, loaded back and rendered
+from four cameras through ``gaussian_renderer.render``; 20 training steps
+through ``train.loop.train_step``; 30 iterations of ``train.loop.Trainer``
+with densification. Each path checks that it went through the kernels. It
+prints one JSON line of per-kernel numbers, the card's name and power
+limit, and as its last line ``{"ok": true, "device": {...}}``. Any failed
+check exits non-zero before that line. Needs a CUDA device and nvcc
+(CUDA_HOME or /usr/local/cuda); imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -35,7 +38,11 @@ from neuralgaussiansplatting_torch.ops import binning
 from neuralgaussiansplatting_torch.ops import blend_pallas
 from neuralgaussiansplatting_torch.ops import blend_seq
 from neuralgaussiansplatting_torch.ops import preprocess as pp
+from neuralgaussiansplatting_torch.ops import blend as blend_plain
 from neuralgaussiansplatting_torch.ops import rasterize as rast
+from neuralgaussiansplatting_torch.train import loop
+from neuralgaussiansplatting_torch.train import optim
+from neuralgaussiansplatting_torch.utils import losses
 
 W = H = 800
 N = 100_000
@@ -49,11 +56,29 @@ CONTRIB_AGREE = 0.999  # n_contrib equal on at least this share of pixels
 # H100 SXM data sheet peaks (dense, no sparsity), at the 700 W limit
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
-# FP32 operations per visited (instance, pixel) pair of the blend, expf as
-# one: 2 sub (dx, dy), 6 mul + 1 add + 1 mul + 1 sub (power), expf, 1 mul +
-# 1 min (alpha), 1 mul + 1 sub (T), 3 mul + 3 add (color); the comparisons
-# and selects are not counted.
-K1_OPS_PER_PAIR = 22
+# FP32 operations counted as the function needs them, expf as one; the
+# comparisons and selects are not counted. K1, per (instance, pixel) pair
+# visited while the pixel was not done: 2 sub (dx, dy), 6 mul + 1 add + 1 mul
+# + 1 sub (power), expf, 1 mul + 1 min (alpha).
+K1_VISIT_OPS_PER_PAIR = 14
+# K1, per blended pair on top: 1 mul + 1 sub (T), 3 mul + 3 add (color).
+K1_BLEND_OPS_PER_PAIR = 8
+# K2, per pair walked up to the tile's deepest contributor while the pixel
+# was not done: the forward recompute as K1's visit, 14.
+K2_WALK_OPS_PER_PAIR = 14
+# K2, per blended pair on top: 3 mul + 2 add (cdot), 1 mul + 1 sub (T),
+# 1 mul + 1 add (prefix); 5 (dalpha: T*cdot, tot - prefix, 1 - a, div, sub),
+# 1 mul (dpow), 6 + 6 (d mean2d x, y: neg, 2 mul, sub, mul, add), 4 + 4 + 4
+# (d conic A, B, C: neg or mul, 2 mul, add), 2 (d opacity: mul, add), 3 x 2
+# (d rgb: mul, add); the warp and block sums are those adds.
+K2_BLEND_OPS_PER_PAIR = 9 + 38
+JAX_GATE = (5e-4, 5e-3)  # gradient atol (x max |row|), rtol: the JAX seq gate
+# K2 vs its plain version on one card: only the order of the pixel sums
+# differs (readings 1.4e-7 and 3.0e-7 of a row's scale), so max |d| must stay
+# within this share of each row's scale as well as inside the JAX gate
+SAME_CARD_REL = 1e-5
+TRAIN_STEPS = 20
+TRAINER_ITERS = 30
 
 
 def fail(msg: str):
@@ -118,7 +143,7 @@ def k1_inputs(params, state, cam, mark=lambda stage: None):
 
 def phase_build():
     t0 = time.perf_counter()
-    logs = _build.build(["blend_seq_fwd"])
+    logs = _build.build(["blend_seq_fwd", "blend_seq_bwd"])
     print(f"build: {time.perf_counter() - t0:.1f} s "
           f"({', '.join(logs) or 'cached'})")
     for name, log in logs.items():
@@ -133,8 +158,8 @@ def phase_k1_parity(params, state):
     args = (packed, inst.tile_start, inst.tile_count, tiles_x)
     got = blend_seq.blend_seq_fwd(*args)
     torch.cuda.synchronize()
-    want, visited = blend_seq.blend_tiles_seq_reference(
-        *args, return_visited=True)
+    want, pairs, blended = blend_seq.blend_tiles_seq_reference(
+        *args, return_pairs=True)
     err = (got[:, :4] - want[:, :4]).abs().max().item()
     agree = (got[:, 4] == want[:, 4]).float().mean().item()
     print(f"k1 parity: tiles {inst.tile_count.shape[0]}, K {packed.shape[1]}, "
@@ -148,8 +173,7 @@ def phase_k1_parity(params, state):
     ms = cuda_ms(lambda: blend_seq.blend_seq_fwd(*args), reps=50, warmup=3)
     plain_ms = cuda_ms(lambda: blend_seq.blend_tiles_seq_reference(*args),
                        reps=2)
-    pairs = int(visited.sum())
-    ops = pairs * K1_OPS_PER_PAIR
+    ops = pairs * K1_VISIT_OPS_PER_PAIR + blended * K1_BLEND_OPS_PER_PAIR
     n_inst = int(inst.tile_count.sum())
     num_tiles = inst.tile_count.shape[0]
     nbytes = (blend_pallas.PROWS * n_inst * 4 + 2 * num_tiles * 4
@@ -157,7 +181,8 @@ def phase_k1_parity(params, state):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / FP32_OPS_PER_S * 1e3
     print(f"k1 timing: {ms:.4f} ms/launch (50 launches), plain version "
-          f"{plain_ms:.1f} ms; visited pairs {pairs}, {ops:.4g} FP32 ops "
+          f"{plain_ms:.1f} ms; visited pairs {pairs}, blended pairs "
+          f"{blended}, {ops:.4g} FP32 ops "
           f"-> {t_ops:.4f} ms; {nbytes} bytes -> {t_bytes:.4f} ms")
     return {"name": "blend_seq_fwd", "route": "cuda",
             "source": "neuralgaussiansplatting_torch/csrc/blend_seq_fwd.cu",
@@ -168,9 +193,103 @@ def phase_k1_parity(params, state):
             "library_ms": None}
 
 
+def gate_error(got, want, same_card=False):
+    """Largest |got - want| / max|want row| over the rows of (R, ...)
+    tensors; fails where the JAX gradient gate does, and with
+    ``same_card`` where an error passes ``SAME_CARD_REL`` of its row's
+    scale."""
+    atol, rtol = JAX_GATE
+    worst = 0.0
+    for row in range(want.shape[0]):
+        scale = want[row].abs().max().item() + 1e-12
+        err = (got[row] - want[row]).abs()
+        check(bool((err <= atol * scale + rtol * want[row].abs()).all()),
+              f"row {row} outside the JAX gradient gate: max |d| "
+              f"{err.max().item():.3e}, row scale {scale:.3e}")
+        check(not same_card or err.max().item() <= SAME_CARD_REL * scale,
+              f"row {row}: max |d| {err.max().item():.3e} passes "
+              f"{SAME_CARD_REL} of the row scale {scale:.3e}")
+        worst = max(worst, err.max().item() / scale)
+    return worst
+
+
+def photometric_cotangent(raw, tiles_x, tiles_y, target, bg):
+    """d photometric_loss / d raw, with the image assembled from K1's output
+    as ``rasterize`` assembles it."""
+    raw = raw.detach().requires_grad_()
+    color = raw[:, 0:3].transpose(1, 2) + raw[:, 3][..., None] * bg
+    image = blend_plain.assemble_image(color, tiles_x, tiles_y, 32, 32, W,
+                                       H).permute(2, 0, 1)
+    loss = losses.photometric_loss(image, target, 0.2)
+    return torch.autograd.grad(loss, raw)[0].contiguous()
+
+
+def phase_k2_parity(params, state):
+    """K2 vs its plain version on the card, at the bench shapes, with the
+    cotangent of the photometric loss against a seeded target."""
+    packed, inst, tiles_x = k1_inputs(params, state, demo.demo_camera(W, H))
+    args = (packed, inst.tile_start, inst.tile_count)
+    raw = blend_seq.blend_seq_fwd(*args, tiles_x)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    target = torch.rand((3, H, W), generator=gen, device="cuda")
+    cot = photometric_cotangent(raw, tiles_x, inst.tile_count.shape[0]
+                                // tiles_x, target,
+                                torch.zeros(3, device="cuda"))
+    bwd_args = (*args, raw, cot, tiles_x)
+    got = blend_seq.blend_seq_bwd(*bwd_args)
+    again = blend_seq.blend_seq_bwd(*bwd_args)
+    torch.cuda.synchronize()
+    want, walked, blended = blend_seq.blend_tiles_seq_bwd_reference(
+        *bwd_args, return_pairs=True)
+    check(torch.isfinite(got).all().item(), "K2 output not finite")
+    check(torch.equal(got, again), "two K2 launches differ")
+    worst = gate_error(got, want, same_card=True)
+    err = (got - want).abs().max().item()
+    stop = torch.minimum(inst.tile_count,
+                         raw[:, 4].amax(dim=1).to(torch.int32))
+    # how much of each row the JAX gate's atol alone would let through
+    present = want.abs().amax(dim=0) > 0
+    quiet = [(want[row, present].abs()
+              < JAX_GATE[0] * want[row].abs().max()).float().mean().item()
+             for row in range(want.shape[0])]
+    print(f"k2 parity: cotangent of L1+SSIM vs a seeded target, max|d| "
+          f"{err:.3e}, max|d| / row scale {worst:.3e} (gates: "
+          f"{SAME_CARD_REL} x row scale on one card; JAX atol "
+          f"{JAX_GATE[0]} x row scale, rtol {JAX_GATE[1]}), two launches "
+          f"bit-equal; walked {int(stop.sum())} of "
+          f"{int(inst.tile_count.sum())} instances")
+    print("k2 parity: share of each row's nonzero slots below the JAX "
+          "atol: " + ", ".join(f"{q:.4f}" for q in quiet))
+
+    ms = cuda_ms(lambda: blend_seq.blend_seq_bwd(*bwd_args), reps=50,
+                 warmup=3)
+    plain_ms = cuda_ms(
+        lambda: blend_seq.blend_tiles_seq_bwd_reference(*bwd_args), reps=1)
+    ops = walked * K2_WALK_OPS_PER_PAIR + blended * K2_BLEND_OPS_PER_PAIR
+    num_tiles = inst.tile_count.shape[0]
+    nbytes = (blend_pallas.PROWS * int(stop.sum()) * 4 + 2 * num_tiles * 4
+              + num_tiles * (5 + 4) * blend_seq.PIX * 4
+              + blend_pallas.PROWS * packed.shape[1] * 4)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    print(f"k2 timing: {ms:.4f} ms/launch (50 launches), plain version "
+          f"{plain_ms:.1f} ms; walked pairs {walked}, blended pairs "
+          f"{blended}, {ops:.4g} FP32 ops -> {t_ops:.4f} ms; {nbytes} bytes "
+          f"-> {t_bytes:.4f} ms")
+    return {"name": "blend_seq_bwd", "route": "cuda",
+            "source": "neuralgaussiansplatting_torch/csrc/blend_seq_bwd.cu",
+            "replaces": "neuralgaussiansplatting_tpu/ops/blend_seq.py:202",
+            "launches": None, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": None}
+
+
 def phase_small_reference():
     """The path on the card vs the plain scan oracle on the CPU, at 64x64:
-    preprocess and binning on the GPU, K1, and assembly, end to end."""
+    preprocess and binning on the GPU, K1, and assembly, end to end; then
+    the gradients of a photometric loss through it (K2 and the reduction)
+    vs autograd through the oracle."""
     params, state, _ = demo.demo_scene(n=600, w=64, h=64, seed=3,
                                        sh_degree=SH_DEGREE, device="cpu")
     gen = torch.Generator().manual_seed(0)
@@ -197,8 +316,29 @@ def phase_small_reference():
     for key in ("num_rendered", "dropped", "culled", "max_per_tile"):
         check(int(got[key]) == int(want[key]), f"monitor {key} differs")
 
+    target = torch.rand((3, 64, 64), generator=gen)
+    grads = {}
+    for backend, device in (("xla", "cpu"), ("seq", "cuda")):
+        leaves = gm.GaussianParams(*(a.detach().to(device).requires_grad_()
+                                     for a in params))
+        settings = (rast.make_settings("xla", block_x=32, block_y=32, chunk=8,
+                                       **small) if backend == "xla"
+                    else rast.make_settings("seq", **small))
+        out = render(demo.demo_camera(64, 64, 0.3, device=device), leaves,
+                     state.alive.to(device), SH_DEGREE, bg.to(device),
+                     settings)
+        loss = losses.photometric_loss(out["render"], target.to(device), 0.2)
+        grads[backend] = torch.autograd.grad(
+            loss, [leaves.xyz, leaves.scaling, leaves.rotation,
+                   leaves.opacity, leaves.features_dc, leaves.features_rest])
+    worst = max(gate_error(g.cpu().reshape(1, -1), w.reshape(1, -1))
+                for g, w in zip(grads["seq"], grads["xla"]))
+    print(f"small train reference: 64x64 L1+SSIM gradients, seq on the card "
+          f"vs the CPU scan oracle's autograd, max|d| / scale {worst:.3e} "
+          f"(JAX gate)")
 
-def phase_serve(params, state, k1_row):
+
+def phase_serve(params, state):
     """PLY save -> load, then render four views through the public API."""
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "point_cloud.ply")
@@ -211,14 +351,15 @@ def phase_serve(params, state, k1_row):
     bg = torch.zeros(3, device="cuda")
 
     torch.cuda.synchronize()
-    blend_seq.launches = 0
+    blend_seq.launches = blend_seq.bwd_launches = 0
     outs = [render(cam, loaded, lstate.alive, deg, bg, SETTINGS)
             for cam in cams]
     torch.cuda.synchronize()
     launches = blend_seq.launches
     check(launches == len(VIEWS),
           f"K1 launched {launches} times for {len(VIEWS)} renders")
-    k1_row["launches"] = launches
+    check(blend_seq.bwd_launches == 0, "a forward render launched K2")
+    print(f"serve: K1 launched {launches} times for {len(VIEWS)} renders")
     for angle, out in zip(VIEWS, outs):
         img = out["render"]
         check(img.shape == (3, H, W), f"image shape {tuple(img.shape)}")
@@ -264,6 +405,206 @@ def phase_serve(params, state, k1_row):
     return loaded, lstate
 
 
+def perturbed(params, seed):
+    """The cloud with seeded noise on its opacity logits and SH DC: where
+    training starts, its target being the unperturbed cloud's renders."""
+    gen = torch.Generator(device=params.xyz.device).manual_seed(seed)
+
+    def noise(a, std):
+        return std * torch.randn(a.shape, generator=gen, device=a.device)
+
+    return params._replace(
+        opacity=params.opacity + noise(params.opacity, 1.0),
+        features_dc=params.features_dc + noise(params.features_dc, 0.3))
+
+
+def orbit_targets(params, state):
+    cams = [demo.demo_camera(W, H, angle) for angle in VIEWS]
+    bg = torch.zeros(3, device="cuda")
+    with torch.no_grad():
+        gts = [render(cam, params, state.alive, SH_DEGREE, bg,
+                      SETTINGS)["render"] for cam in cams]
+    return cams, gts, bg
+
+
+def phase_train(params, state, rows):
+    """20 ``train_step``s at the bench width, from a perturbed cloud towards
+    the unperturbed cloud's renders from four orbit views."""
+    cams, gts, bg = orbit_targets(params, state)
+    tx = optim.make_optimizer(optim.OptimizationParams(), 1.0)
+    start = perturbed(params, 11)
+    ts = loop.TrainState(start, state, tx.init(start), 0)
+    kw = dict(tx=tx, sh_degree=SH_DEGREE, settings=SETTINGS,
+              lambda_dssim=0.2)
+
+    torch.cuda.synchronize()
+    blend_seq.launches = blend_seq.bwd_launches = 0
+    step_ms, metrics = [], []
+    for i in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        ts, m = loop.train_step(ts, cams[i % 4], gts[i % 4], bg, **kw)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        metrics.append(m)
+    k1, k2 = blend_seq.launches, blend_seq.bwd_launches
+    check(k1 == TRAIN_STEPS and k2 == TRAIN_STEPS,
+          f"{TRAIN_STEPS} steps launched K1 {k1} and K2 {k2} times")
+    rows[0]["launches"], rows[1]["launches"] = k1, k2
+    loss = [m["loss"].item() for m in metrics]
+    check(all(math.isfinite(x) for x in loss), f"loss not finite: {loss}")
+    check(all(int(m["dropped"]) == 0 for m in metrics), "instances dropped")
+    for name, group in ts.opt_state.items():
+        check(torch.isfinite(group.mu).all().item()
+              and torch.isfinite(group.nu).all().item(),
+              f"non-finite gradient moments in {name}")
+    for name, leaf in zip(ts.params._fields, ts.params):
+        check(torch.isfinite(leaf).all().item(), f"{name} not finite")
+    first, last = statistics.mean(loss[:5]), statistics.mean(loss[-5:])
+    check(last < first, f"loss did not fall: first 5 {first}, last 5 {last}")
+    step = statistics.median(step_ms[2:])
+    print(f"train: K1 {k1} and K2 {k2} launches in {TRAIN_STEPS} steps; loss "
+          f"{loss[0]:.5f} -> {loss[-1]:.5f} (mean of first 5 {first:.5f}, "
+          f"last 5 {last:.5f}); psnr {metrics[0]['psnr'].item():.3f} -> "
+          f"{metrics[-1]['psnr'].item():.3f}; num_rendered "
+          f"{int(metrics[-1]['num_rendered'])}, dropped 0")
+    print(f"train timing: median step {step:.3f} ms (host clock, "
+          f"synchronised, {TRAIN_STEPS - 2} steps), {W * H / step / 1e3:.3f} "
+          f"Mpix/s")
+
+    # bench.py's step: render + loss + backward, no optimizer
+    def fwd_bwd():
+        leaves = [a.detach().requires_grad_() for a in ts.params]
+        out = render(cams[0], ts.params._replace(
+            **dict(zip(ts.params._fields, leaves))), state.alive, SH_DEGREE,
+            bg, SETTINGS)
+        loss = losses.photometric_loss(out["render"], gts[0], 0.2)
+        return torch.autograd.grad(loss, leaves, allow_unused=True)
+
+    fb_ms = []
+    for _ in range(12):
+        t0 = time.perf_counter()
+        fwd_bwd()
+        torch.cuda.synchronize()
+        fb_ms.append((time.perf_counter() - t0) * 1e3)
+    fb = statistics.median(fb_ms[2:])
+    print(f"train timing: render+loss+backward (bench.py's step) median "
+          f"{fb:.3f} ms, {W * H / fb / 1e3:.3f} Mpix/s fwd+bwd")
+
+    # the same steps, with CUDA events between their stages
+    split = {"forward": [], "backward": [], "optimizer": []}
+    host_ms = []
+    for i in range(12):
+        events = []
+
+        def mark(_stage):
+            events.append(torch.cuda.Event(enable_timing=True))
+            events[-1].record()
+
+        t0 = time.perf_counter()
+        mark("start")
+        ts, _ = loop.train_step(ts, cams[i % 4], gts[i % 4], bg, mark=mark,
+                                **kw)
+        torch.cuda.synchronize()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        for stage, a, b in zip(split, events, events[1:]):
+            split[stage].append(a.elapsed_time(b))
+    print("train step split (CUDA events, median of 10): " + ", ".join(
+        f"{stage} {statistics.median(v[2:]):.3f} ms"
+        for stage, v in split.items())
+        + f"; the same steps by host clock {statistics.median(host_ms[2:]):.3f}"
+        " ms")
+
+    from torch.profiler import ProfilerActivity, profile
+    steps = 5
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(steps):
+            ts, _ = loop.train_step(ts, cams[i % 4], gts[i % 4], bg, **kw)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    report_profile(prof, wall_ms, steps, "step")
+
+
+def report_profile(prof, wall_ms, count, unit):
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    if not kernels:
+        print("profiler: no device time recorded")
+        return
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    # host calls that wait on the device (one cudaDeviceSynchronize ends
+    # the window) or copy to it
+    waits = {e.key: e.count for e in prof.key_averages()
+             if "Synchronize" in e.key or e.key.startswith("cudaMemcpy")}
+    print(f"profiler over {count} {unit}s: wall {wall_ms:.2f} ms, device "
+          f"busy {busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f} %), "
+          f"{sum(e.count for e in kernels) // count} kernels per {unit}; "
+          f"host waits and copies in the window: {waits or 'none'}")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+        print(f"  {e.self_device_time_total / 1e3 / count:8.3f} ms/{unit} "
+              f"x{e.count // count:<4d} {e.key[:90]}")
+
+
+def phase_trainer():
+    """``Trainer`` for 30 iterations at the bench width with densification
+    at 10, 20 and 30, from a cloud with room to double."""
+    params, state, _ = demo.demo_scene(n=N, w=W, h=H, sh_degree=SH_DEGREE,
+                                       capacity=2 * N)
+    cams, gts, _ = orbit_targets(params, state)
+    model = gm.GaussianModel(SH_DEGREE)
+    model.params, model.state = perturbed(params, 12), state
+    model.active_sh_degree = SH_DEGREE
+    opt = optim.OptimizationParams(densify_from_iter=5,
+                                   densification_interval=10)
+    settings = dataclasses.replace(SETTINGS, capacity=1 << 20,
+                                   packed_capacity=1 << 20)
+    trainer = loop.Trainer(model, opt=opt, settings=settings,
+                           cameras_extent=4.4, tune_interval=10)
+    fired, written_rows = [], 0
+    t0 = time.perf_counter()
+    for it in range(1, TRAINER_ITERS + 1):
+        metrics = trainer.grad_step(cams[it % 4], gts[it % 4], it)
+        alive_before = trainer.ts.gstate.alive
+        metrics = trainer.apply_schedule(it, metrics)
+        report = metrics.get("densify")
+        if report is None:
+            continue
+        fired.append(it)
+        alive = trainer.ts.gstate.alive
+        new = alive[:alive_before.shape[0]] & ~alive_before
+        written_rows += int(new.sum())
+        for name, group in trainer.ts.opt_state.items():
+            check(not group.mu[:new.shape[0]][new].any()
+                  and not group.nu[:new.shape[0]][new].any(),
+                  f"Adam moments of written rows not zero ({name})")
+        print(f"trainer iteration {it}: densify cloned "
+              f"{int(report.num_cloned)}, split {int(report.num_split)}, "
+              f"pruned {int(report.num_pruned)}, alive "
+              f"{int(report.num_alive)} of {trainer.ts.params.xyz.shape[0]}"
+              f", demand {int(report.demand)}, loss "
+              f"{metrics['loss'].item():.5f}, dropped "
+              f"{int(metrics['dropped'])}, num_rendered "
+              f"{int(metrics['num_rendered'])}"
+              + (f", grew to {metrics['grew_capacity']}"
+                 if "grew_capacity" in metrics else ""))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(fired == [10, 20, 30], f"densify fired at {fired}")
+    check(written_rows > 0, "densification wrote no rows")
+    trainer.sync_model()
+    reset = loop.reset_opacity_step(trainer.ts)
+    top = torch.sigmoid(reset.params.opacity).max().item()
+    check(top <= 0.01 + 1e-6, f"opacity {top} after the reset")
+    check(not reset.opt_state["opacity"].mu.any().item(),
+          "opacity moments survive the reset")
+    print(f"trainer: {TRAINER_ITERS} iterations in {wall:.2f} s, densify at "
+          f"{fired}, {written_rows} rows written with zero Adam moments, "
+          f"{model.num_alive} alive; reset_opacity_step leaves max opacity "
+          f"{top:.6f}")
+
+
 def phase_breakdown(params, state):
     """Where a render's time goes: the stages of ``rasterize`` timed apart
     with CUDA events, then the device's busy share over whole renders and
@@ -293,26 +634,14 @@ def phase_breakdown(params, state):
     from torch.profiler import ProfilerActivity, profile
     bg = torch.zeros(3, device="cuda")
     renders = 5
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with torch.no_grad(), profile(activities=[ProfilerActivity.CPU,
+                                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(renders):
             render(cam, params, state.alive, SH_DEGREE, bg, SETTINGS)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and e.self_device_time_total > 0]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    if not kernels:
-        print("profiler: no device time recorded")
-        return
-    print(f"profiler over {renders} renders: wall {wall_ms:.2f} ms, device "
-          f"busy {busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f} %), "
-          f"{sum(e.count for e in kernels) // renders} kernels per render")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
-        print(f"  {e.self_device_time_total / 1e3 / renders:8.3f} ms/render "
-              f"x{e.count // renders:<4d} {e.key[:90]}")
+    report_profile(prof, wall_ms, renders, "render")
 
 
 def main():
@@ -324,16 +653,17 @@ def main():
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
     torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
 
     phase_build()
     params, state, _ = demo.demo_scene(n=N, w=W, h=H, sh_degree=SH_DEGREE)
-    k1_row = phase_k1_parity(params, state)
+    rows = [phase_k1_parity(params, state), phase_k2_parity(params, state)]
     phase_small_reference()
-    loaded, lstate = phase_serve(params, state, k1_row)
+    loaded, lstate = phase_serve(params, state)
     phase_breakdown(loaded, lstate)
+    phase_train(loaded, lstate, rows)
+    phase_trainer()
 
-    print(json.dumps({"kernels": [k1_row]}))
+    print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -80,6 +80,46 @@ def get_covariance(p: GaussianParams, scaling_modifier: float = 1.0) -> torch.Te
     return transforms.strip_symmetric(cov)
 
 
+def normalize_params(params: GaussianParams) -> GaussianParams:
+    """Flatten rank-3 SH leaves ((P, 1, 3) / (P, K-1, 3), the layout of
+    older checkpoints) into the flat coefficient-major (P, 3) /
+    (P, 3*(K-1)) storage; a row-major reshape is that flattening."""
+    dc, rest = params.features_dc, params.features_rest
+    if dc.ndim == 3:
+        dc = dc.reshape(dc.shape[0], -1)
+    if rest.ndim == 3:
+        rest = rest.reshape(rest.shape[0], -1)
+    return params._replace(features_dc=dc, features_rest=rest)
+
+
+def repad(params: GaussianParams, state: GaussianState, capacity: int):
+    """(params, state) re-padded to ``capacity`` slots.
+
+    Growing pads with zeros (identity quaternions in the new rotation rows);
+    shrinking raises ValueError when an alive slot lies past the new
+    capacity.
+    """
+    cap0 = params.xyz.shape[0]
+    if capacity == cap0:
+        return params, state
+    if capacity < cap0:
+        if bool(state.alive[capacity:].any()):
+            raise ValueError(
+                f"cannot shrink capacity {cap0} -> {capacity}: alive "
+                f"Gaussians exist beyond the requested capacity")
+        return (GaussianParams(*(a[:capacity] for a in params)),
+                type(state)(*(a[:capacity] for a in state)))
+
+    def grow(a):
+        return torch.cat([a, a.new_zeros((capacity - cap0,) + a.shape[1:])])
+
+    new_params = GaussianParams(*(grow(a) for a in params))
+    rotation = new_params.rotation.clone()
+    rotation[cap0:, 0] = 1.0
+    return (new_params._replace(rotation=rotation),
+            type(state)(*(grow(a) for a in state)))
+
+
 # ---------------------------------------------------------------------------
 # Construction
 # ---------------------------------------------------------------------------
@@ -171,6 +211,21 @@ def params_from_numpy(params, state, device="cuda"):
             GaussianState(**leaves(state, GaussianState._fields)))
 
 
+def opt_state_from_numpy(groups: dict, device="cuda") -> dict:
+    """The JAX package's per-group Adam state as the port's optimizer state.
+
+    ``groups`` maps each optimized ``GaussianParams`` field to its optax
+    (mu, nu, count), as numpy arrays (count a scalar); the result is the
+    ``train.optim.Adam`` state on ``device``, bit for bit.
+    """
+    from neuralgaussiansplatting_torch.train.optim import AdamGroup
+    dev = resolve_device(device)
+    return {name: AdamGroup(torch.from_numpy(np.array(mu)).to(dev),
+                            torch.from_numpy(np.array(nu)).to(dev),
+                            int(count))
+            for name, (mu, nu, count) in groups.items()}
+
+
 # ---------------------------------------------------------------------------
 # PLY serialization (reference schema)
 # ---------------------------------------------------------------------------
@@ -252,3 +307,44 @@ def load_ply(path: str, capacity: int | None = None, device="cuda"):
     params, state = _to_model(leaves, n, capacity, device)
     sh_degree = int(round((n_rest // 3 + 1) ** 0.5)) - 1
     return params, state, sh_degree
+
+
+class GaussianModel:
+    """Host-side holder of the (params, state) tensors, the SH warm-up
+    counter (``active_sh_degree`` rises by one per ``oneup_sh_degree`` up to
+    ``max_sh_degree``) and the scene extent densification uses."""
+
+    def __init__(self, sh_degree: int = 3, device="cuda"):
+        self.max_sh_degree = sh_degree
+        self.active_sh_degree = 0
+        self.params: GaussianParams | None = None
+        self.state: GaussianState | None = None
+        self.spatial_lr_scale = 1.0
+        self.device = resolve_device(device)
+
+    @property
+    def num_alive(self) -> int:
+        return int(self.state.alive.sum())
+
+    @property
+    def capacity(self) -> int:
+        return self.params.xyz.shape[0]
+
+    def oneup_sh_degree(self):
+        if self.active_sh_degree < self.max_sh_degree:
+            self.active_sh_degree += 1
+
+    def create_from_pcd(self, pcd, spatial_lr_scale: float,
+                        capacity: int | None = None):
+        """``pcd`` has ``points``, ``colors`` and ``normals`` (N, 3)."""
+        self.spatial_lr_scale = float(spatial_lr_scale)
+        self.params, self.state = create_from_pcd(
+            pcd.points, pcd.colors, pcd.normals, self.max_sh_degree,
+            capacity, device=self.device)
+
+    def save_ply(self, path: str):
+        save_ply(path, self.params, self.state.alive)
+
+    def load_ply(self, path: str, capacity: int | None = None):
+        self.params, self.state, deg = load_ply(path, capacity, self.device)
+        self.active_sh_degree = self.max_sh_degree = max(deg, 0)

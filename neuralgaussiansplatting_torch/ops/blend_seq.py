@@ -1,14 +1,17 @@
-"""Sequential-instance blend over 32x32 tiles: the forward render's kernel.
+"""Sequential-instance blend over 32x32 tiles: the render's kernels.
 
-Port of ``ops/blend_seq.py`` (forward only). ``blend_tiles_seq`` is the
-public blend; ``blend_seq_fwd`` is the wrapper of kernel K1
-(``csrc/blend_seq_fwd.cu``, replacing the TPU kernel ``_fwd_kernel``): on a
-CUDA tensor it launches K1 or raises, never falling back; on a CPU tensor
-it runs ``blend_tiles_seq_reference``, the plain PyTorch version of the same
-recurrence, in the same operation order. ``launches`` counts K1 launches.
+Port of ``ops/blend_seq.py``. ``blend_tiles_seq`` is the public blend,
+differentiable through ``torch.autograd``: its forward is kernel K1
+(``csrc/blend_seq_fwd.cu``, replacing the TPU kernel ``_fwd_kernel``) and its
+backward kernel K2 (``csrc/blend_seq_bwd.cu``, replacing ``_bwd_kernel`` and
+the XLA ``_epilogue``), with the JAX ``custom_vjp``'s contract.
 
-The backward (K2) and the per-Gaussian gradient reduction come with the
-training slice; until then the seq path refuses tensors that require grad.
+``blend_seq_fwd`` and ``blend_seq_bwd`` are the kernels' wrappers: on a CUDA
+tensor each launches its kernel or raises, never falling back; on a CPU
+tensor each runs its kernel's plain PyTorch version
+(``blend_tiles_seq_reference``, ``blend_tiles_seq_bwd_reference``), which
+repeats the kernel's recurrence in the same operation order. ``launches``
+and ``bwd_launches`` count the K1 and K2 launches.
 """
 
 from __future__ import annotations
@@ -31,23 +34,33 @@ CHUNK = 128      # binning alignment of each tile's instance segment
 BX = BY = 32     # tile pitch
 PIX = BX * BY
 
-launches = 0     # K1 launches since the caller last set it to 0
+launches = 0      # K1 launches since the caller last set it to 0
+bwd_launches = 0  # K2 launches since the caller last set it to 0
+
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# the C signatures of csrc/blend_seq_{fwd,bwd}.cu (the last pointer is the
+# stream)
+_ARGTYPES = {
+    "blend_seq_fwd": [_P, _P, _P, _LL, _I, _I, _I, _P, _P],
+    "blend_seq_bwd": [_P, _P, _P, _LL, _P, _P, _I, _I, _I, _P, _P],
+}
 
 
 @functools.cache
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("blend_seq_fwd")
-    fn = lib.blend_seq_fwd
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+def _lib(name: str) -> ctypes.CDLL:
+    lib = _build.load(name)
+    fn = getattr(lib, name)
+    fn.argtypes = _ARGTYPES[name]
     fn.restype = ctypes.c_int
-    lib.blend_seq_fwd_error.argtypes = [ctypes.c_int]
-    lib.blend_seq_fwd_error.restype = ctypes.c_char_p
+    err = getattr(lib, name + "_error")
+    err.argtypes = [ctypes.c_int]
+    err.restype = ctypes.c_char_p
     return lib
 
 
-def _check_inputs(packed, tile_start, tile_count, tiles_x):
+def _check_inputs(packed, tile_start, tile_count, tiles_x, *per_tile):
+    """Validate the kernels' common inputs; ``per_tile`` are (name, tensor)
+    pairs that must be (T, 5, 1024) float32 on ``packed``'s device."""
     if packed.dtype != torch.float32 or packed.ndim != 2 \
             or packed.shape[0] != PROWS:
         raise ValueError(f"packed must be ({PROWS}, K) float32, got "
@@ -63,6 +76,41 @@ def _check_inputs(packed, tile_start, tile_count, tiles_x):
     if tile_count.shape[0] != num_tiles or num_tiles % tiles_x:
         raise ValueError(f"{num_tiles} tile starts, {tile_count.shape[0]} "
                          f"counts, {tiles_x} tiles per row")
+    for name, a in per_tile:
+        if a.dtype != torch.float32 or tuple(a.shape) != (num_tiles, 5, PIX):
+            raise ValueError(f"{name} must be ({num_tiles}, 5, {PIX}) "
+                             f"float32, got {tuple(a.shape)} {a.dtype}")
+        if a.device != packed.device:
+            raise ValueError(f"{name} is on {a.device}, packed on "
+                             f"{packed.device}")
+
+
+def _kernel_device(name, *tensors):
+    """Refuse what a kernel cannot take: tensors that need grad (a launch
+    would drop their gradient; ``blend_tiles_seq`` is the differentiable
+    entry), a device other than the CPU or CUDA, non-contiguous memory.
+    Returns True for CUDA tensors."""
+    if torch.is_grad_enabled() and any(a.requires_grad for a in tensors):
+        raise ValueError(f"{name} takes no tensors that require grad; "
+                         "differentiate through blend_tiles_seq")
+    dev = tensors[0].device
+    if dev.type == "cpu":
+        return False
+    if dev.type != "cuda":
+        raise ValueError(f"no {name} kernel for device {dev}")
+    if not all(a.is_contiguous() for a in tensors):
+        raise ValueError(f"{name} takes contiguous tensors")
+    return True
+
+
+def _launch(name, dev, *args):
+    lib = _lib(name)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = getattr(lib, name)(*args, stream)
+    if err:
+        raise RuntimeError(f"{name} launch failed: "
+                           + getattr(lib, name + "_error")(err).decode())
 
 
 def blend_seq_fwd(packed: torch.Tensor, tile_start: torch.Tensor,
@@ -77,41 +125,59 @@ def blend_seq_fwd(packed: torch.Tensor, tile_start: torch.Tensor,
     """
     global launches
     _check_inputs(packed, tile_start, tile_count, tiles_x)
-    if packed.device.type == "cpu":
+    if not _kernel_device("blend_seq_fwd", packed, tile_start, tile_count):
         return blend_tiles_seq_reference(packed, tile_start, tile_count,
                                          tiles_x, track_contrib)
-    if packed.device.type != "cuda":
-        raise ValueError(f"no K1 for device {packed.device}")
-    if not all(a.is_contiguous() for a in (packed, tile_start, tile_count)):
-        raise ValueError("K1 takes contiguous packed, tile_start and "
-                         "tile_count")
     num_tiles = tile_start.shape[0]
     out = torch.empty((num_tiles, 5, PIX), dtype=torch.float32,
                       device=packed.device)
-    lib = _lib()
-    with torch.cuda.device(packed.device):
-        stream = torch.cuda.current_stream(packed.device).cuda_stream
-        err = lib.blend_seq_fwd(
+    _launch("blend_seq_fwd", packed.device,
             tile_start.data_ptr(), tile_count.data_ptr(), packed.data_ptr(),
             packed.shape[1], num_tiles, tiles_x, int(track_contrib),
-            out.data_ptr(), stream)
-    if err:
-        raise RuntimeError("blend_seq_fwd launch failed: "
-                           + lib.blend_seq_fwd_error(err).decode())
+            out.data_ptr())
     launches += 1
     return out
+
+
+def blend_seq_bwd(packed: torch.Tensor, tile_start: torch.Tensor,
+                  tile_count: torch.Tensor, raw: torch.Tensor,
+                  cot: torch.Tensor, tiles_x: int,
+                  track_contrib: bool = True) -> torch.Tensor:
+    """Backward of ``blend_seq_fwd``: the (9, K) gradient of ``packed``.
+
+    ``raw`` is ``blend_seq_fwd``'s output for the same inputs and ``cot``
+    the cotangent of it (row 4, n_contrib, is ignored). Rows of the result:
+    d x, d y, d conic A, B, C, d opacity, d r, g, b. Slots past a tile's
+    deepest contributor (its largest n_contrib, when ``track_contrib``) and
+    past ``tile_count`` are zero.
+    """
+    global bwd_launches
+    _check_inputs(packed, tile_start, tile_count, tiles_x, ("raw", raw),
+                  ("cot", cot))
+    if not _kernel_device("blend_seq_bwd", packed, tile_start, tile_count,
+                          raw, cot):
+        return blend_tiles_seq_bwd_reference(packed, tile_start, tile_count,
+                                             raw, cot, tiles_x, track_contrib)
+    grad = torch.zeros_like(packed)
+    _launch("blend_seq_bwd", packed.device,
+            tile_start.data_ptr(), tile_count.data_ptr(), packed.data_ptr(),
+            packed.shape[1], raw.data_ptr(), cot.data_ptr(),
+            tile_start.shape[0], tiles_x, int(track_contrib), grad.data_ptr())
+    bwd_launches += 1
+    return grad
 
 
 def blend_tiles_seq_reference(packed: torch.Tensor, tile_start: torch.Tensor,
                               tile_count: torch.Tensor, tiles_x: int,
                               track_contrib: bool = True,
-                              return_visited: bool = False):
+                              return_pairs: bool = False):
     """Plain PyTorch version of K1 (``blend_seq_fwd``), on any device.
 
     A loop over instance index i < max(tile_count), vectorised over
-    (tiles x 1024 px), with K1's operation order. With ``return_visited``
-    it also returns the (T, 1024) count of instances each pixel visited
-    while it was not yet done: the pairs the blend cannot skip.
+    (tiles x 1024 px), with K1's operation order. With ``return_pairs`` it
+    also returns the number of (instance, pixel) pairs visited while the
+    pixel was not yet done, and the number of those that blended: the work
+    K1 cannot skip.
     """
     _check_inputs(packed, tile_start, tile_count, tiles_x)
     dev = packed.device
@@ -122,15 +188,14 @@ def blend_tiles_seq_reference(packed: torch.Tensor, tile_start: torch.Tensor,
     t_col = torch.ones((num_tiles, PIX), dtype=torch.float32, device=dev)
     done = torch.zeros((num_tiles, PIX), dtype=torch.bool, device=dev)
     cr, cg, cb, last = (torch.zeros_like(t_col) for _ in range(4))
-    visited = torch.zeros((num_tiles, PIX), dtype=torch.int64, device=dev)
+    visited = torch.zeros((), dtype=torch.int64, device=dev)
+    blended_pairs = torch.zeros((), dtype=torch.int64, device=dev)
     n_steps = int(count.max()) if num_tiles else 0
     for i in range(n_steps):
         live = i < count                                           # (T,)
         col = torch.clamp(start + i, max=packed.shape[1] - 1)
         attrs = torch.where(live[None, :], packed[:, col], 0.0)    # (9, T)
         mx, my, ca, cbc, cc, op, r, g, b = attrs[:, :, None]        # (T, 1)
-        if return_visited:
-            visited += (~done & live[:, None]).long()
         dx = mx - px
         dy = my - py
         power = -0.5 * (ca * (dx * dx) + cc * (dy * dy)) - cbc * (dx * dy)
@@ -145,10 +210,115 @@ def blend_tiles_seq_reference(packed: torch.Tensor, tile_start: torch.Tensor,
         cb = cb + w * b
         if track_contrib:
             last = torch.where(alive & (a > 0.0), float(i + 1), last)
+        if return_pairs:
+            visited += (~done & live[:, None]).sum()
+            blended_pairs += (alive & (a > 0.0) & live[:, None]).sum()
         t_col = torch.where(alive, t_new, t_col)
         done = done | (t_new < STOP_T)
     raw = torch.stack([cr, cg, cb, t_col, last], dim=1)
-    return (raw, visited) if return_visited else raw
+    if return_pairs:
+        return raw, int(visited), int(blended_pairs)
+    return raw
+
+
+def blend_tiles_seq_bwd_reference(packed: torch.Tensor,
+                                  tile_start: torch.Tensor,
+                                  tile_count: torch.Tensor, raw: torch.Tensor,
+                                  cot: torch.Tensor, tiles_x: int,
+                                  track_contrib: bool = True,
+                                  return_pairs: bool = False):
+    """Plain PyTorch version of K2 (``blend_seq_bwd``), on any device.
+
+    A loop over instance index i < max(stop), where a tile's stop is its
+    deepest contributor (or ``tile_count`` without ``track_contrib``),
+    vectorised over (tiles x 1024 px) with K2's operation order; the sums
+    run over the pixel axis. With ``return_pairs`` it also returns the
+    number of (instance, pixel) pairs walked while the pixel was not yet
+    done, and the number of those that blended: the work K2 cannot skip.
+    """
+    _check_inputs(packed, tile_start, tile_count, tiles_x, ("raw", raw),
+                  ("cot", cot))
+    dev = packed.device
+    num_tiles = tile_start.shape[0]
+    px, py = tile_pixel_coords(tiles_x, num_tiles // tiles_x, BX, BY, dev)
+    start = tile_start.long()
+    stop = tile_count.long()
+    if track_contrib:
+        stop = torch.minimum(stop, raw[:, 4].amax(dim=1).long())
+    g_r, g_g, g_b, g_t = cot[:, 0], cot[:, 1], cot[:, 2], cot[:, 3]
+    tot = raw[:, 0] * g_r + raw[:, 1] * g_g + raw[:, 2] * g_b + raw[:, 3] * g_t
+    t_col = torch.ones((num_tiles, PIX), dtype=torch.float32, device=dev)
+    done = torch.zeros((num_tiles, PIX), dtype=torch.bool, device=dev)
+    prefix = torch.zeros_like(t_col)
+    grad = torch.zeros_like(packed)
+    walked = torch.zeros((), dtype=torch.int64, device=dev)
+    blended_pairs = torch.zeros((), dtype=torch.int64, device=dev)
+    n_steps = int(stop.max()) if num_tiles else 0
+    for i in range(n_steps):
+        live = i < stop                                            # (T,)
+        col = torch.clamp(start + i, max=packed.shape[1] - 1)
+        attrs = torch.where(live[None, :], packed[:, col], 0.0)    # (9, T)
+        mx, my, ca, cbc, cc, op, r, g, b = attrs[:, :, None]        # (T, 1)
+        dx = mx - px
+        dy = my - py
+        power = -0.5 * (ca * (dx * dx) + cc * (dy * dy)) - cbc * (dx * dy)
+        gexp = torch.exp(power)
+        opg = op * gexp
+        alpha = torch.clamp_max(opg, ALPHA_MAX)
+        a = torch.where((power <= 0.0) & (alpha >= ALPHA_MIN), alpha, 0.0)
+        cdot = r * g_r + g * g_g + b * g_b
+        ta = t_col * a
+        t_new = t_col - ta
+        alive = (t_new >= STOP_T) & ~done
+        blended = alive & (a > 0.0)
+        w = torch.where(blended, ta, 0.0)
+        prefix = prefix + w * cdot
+        dalpha = t_col * cdot - (tot - prefix) / (1.0 - a)
+        dpow = opg * dalpha
+        terms = torch.stack([
+            dpow * (-ca * dx - cbc * dy),
+            dpow * (-cc * dy - cbc * dx),
+            dpow * (-0.5 * dx * dx),
+            dpow * (-dx * dy),
+            dpow * (-0.5 * dy * dy),
+            gexp * dalpha,
+            w * g_r,
+            w * g_g,
+            w * g_b,
+        ])                                                         # (9, T, P)
+        sums = torch.where(blended, terms, 0.0).sum(dim=2)         # (9, T)
+        grad[:, col[live]] = sums[:, live]
+        if return_pairs:
+            walked += (~done & live[:, None]).sum()
+            blended_pairs += (blended & live[:, None]).sum()
+        t_col = torch.where(alive, t_new, t_col)
+        done = done | (t_new < STOP_T)
+    if return_pairs:
+        return grad, int(walked), int(blended_pairs)
+    return grad
+
+
+class _SeqBlend(torch.autograd.Function):
+    """K1 forward, K2 backward: the JAX ``custom_vjp`` of ``blend_tiles_seq``
+    (raw outputs in, per-slot gradient rows out, masked by ``valid``)."""
+
+    @staticmethod
+    def forward(ctx, packed, tile_start, tile_count, valid, tiles_x,
+                track_contrib):
+        raw = blend_seq_fwd(packed, tile_start, tile_count, tiles_x,
+                            track_contrib)
+        ctx.save_for_backward(packed, raw, tile_start, tile_count, valid)
+        ctx.tiles_x = tiles_x
+        ctx.track_contrib = track_contrib
+        return raw
+
+    @staticmethod
+    def backward(ctx, cot):
+        packed, raw, tile_start, tile_count, valid = ctx.saved_tensors
+        grad = blend_seq_bwd(packed, tile_start, tile_count, raw,
+                             cot.contiguous(), ctx.tiles_x, ctx.track_contrib)
+        grad = torch.where(valid[None, :], grad, 0.0)
+        return grad, None, None, None, None, None
 
 
 def blend_tiles_seq(inst: Instances, means2d: torch.Tensor,
@@ -157,7 +327,8 @@ def blend_tiles_seq(inst: Instances, means2d: torch.Tensor,
                     block_x: int, block_y: int, max_per_tile: int,
                     chunk: int = CHUNK,
                     track_contrib: bool = True) -> BlendResult:
-    """Same contract as ``blend.blend_tiles``, through K1 on a CUDA device.
+    """Same contract as ``blend.blend_tiles``, through K1 (and K2 for the
+    gradient) on a CUDA device.
 
     Takes 32x32 tiles and chunk 128 only (ValueError otherwise);
     ``max_per_tile`` is already applied by binning.
@@ -167,18 +338,13 @@ def blend_tiles_seq(inst: Instances, means2d: torch.Tensor,
         raise ValueError(
             f"the seq blend takes {BX}x{BY} tiles and {CHUNK}-wide chunks, "
             f"got {block_x}x{block_y} tiles, chunk {chunk}")
-    if torch.is_grad_enabled() and any(
-            a.requires_grad for a in (means2d, conic, opacity, rgb)):
-        raise NotImplementedError(
-            "the seq blend is forward-only until its backward (K2) is "
-            "ported; render under torch.no_grad() or use backend='xla'")
     if inst.tile_start.shape[0] != tiles_x * tiles_y:
         raise ValueError(f"{inst.tile_start.shape[0]} tiles binned, "
                          f"{tiles_x * tiles_y} expected")
     packed = pack_gather(pack_instance_attrs_t(means2d, conic, opacity, rgb),
                          inst.gid)
-    raw = blend_seq_fwd(packed, inst.tile_start, inst.tile_count, tiles_x,
-                        track_contrib)
+    raw = _SeqBlend.apply(packed, inst.tile_start, inst.tile_count,
+                          inst.valid, tiles_x, track_contrib)
     return BlendResult(color=raw[:, 0:3].transpose(1, 2),
                        final_t=raw[:, 3],
-                       n_contrib=raw[:, 4].to(torch.int32))
+                       n_contrib=raw[:, 4].detach().to(torch.int32))

@@ -1,15 +1,20 @@
-"""Public rasterization API (preprocess -> bin -> blend -> assemble).
+"""Public differentiable rasterization API (preprocess -> bin -> blend ->
+assemble).
 
-Port of ``ops/rasterize.py`` for the forward render. Backends:
+Port of ``ops/rasterize.py``; gradients come from ``torch.autograd``.
+Backends:
 
-- ``"seq"``: 32x32 tiles, 128-wide chunks, blended by kernel K1 on a CUDA
-  device (its plain version on the CPU). Other tile or chunk shapes raise
-  ValueError; they are never silently rerouted.
-- ``"xla"``: the plain scan oracle of ``ops/blend.py``, on any device.
+- ``"seq"``: 32x32 tiles, 128-wide chunks, blended by kernel K1 forward and
+  K2 backward on a CUDA device (their plain versions on the CPU). Other tile
+  or chunk shapes raise ValueError; they are never silently rerouted.
+- ``"xla"``: the plain scan oracle of ``ops/blend.py``, on any device,
+  differentiated by autograd.
 - ``"pallas"``: the 16x16 lane-layout kernels (K4/K5), not ported yet.
 
 ``means2d_offset`` shifts the projected centres by offset * (W/2, H/2)
-pixels, the reference's screen-space densification convention.
+pixels, the reference's screen-space densification convention: its
+gradient is dL/d(pixel centre) * (W/2, H/2), the statistic densification
+accumulates.
 """
 
 from __future__ import annotations
@@ -43,7 +48,8 @@ class RasterizeSettings:
     packed_capacity: int | None = None  # aligned output buffer; None =>
                                         # capacity
     precise_cull: bool = True      # per-instance diagonal coverage cull
-    expand: str = "scatter"        # "scatter" | "dense" instance expansion
+    expand: str = "scatter"        # "scatter" | "dense" | "auto" (=
+                                   # scatter) instance expansion
     dense_cap: int = 16            # per-gaussian slot cap in dense mode
 
     def tiles_for(self, width: int, height: int):
@@ -127,9 +133,10 @@ def rasterize(
         tight=settings.tight_culling,
     )
     if means2d_offset is not None:
-        shift = means2d_offset * torch.tensor(
-            [cam.width * 0.5, cam.height * 0.5], dtype=torch.float32,
-            device=means2d_offset.device)
+        # scaled column by column with Python scalars: a (2,) tensor made
+        # from host values would be a blocking copy to the device
+        shift = torch.stack([means2d_offset[:, 0] * (cam.width * 0.5),
+                             means2d_offset[:, 1] * (cam.height * 0.5)], -1)
         pre = pre._replace(means2d=pre.means2d + shift)
 
     inst = binning.bin_gaussians(
@@ -139,7 +146,10 @@ def rasterize(
         precise_cull=settings.precise_cull,
         block_x=settings.block_x, block_y=settings.block_y,
         width=cam.width, height=cam.height,
-        expand=settings.expand, dense_cap=settings.dense_cap)
+        # "auto" is the run-length scatter expansion at every size, as in
+        # the JAX package
+        expand="scatter" if settings.expand == "auto" else settings.expand,
+        dense_cap=settings.dense_cap)
 
     blend_args = (inst, pre.means2d, pre.conic, pre.opacity, pre.rgb,
                   tiles_x, tiles_y, settings.block_x, settings.block_y,

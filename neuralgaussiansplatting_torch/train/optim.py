@@ -1,0 +1,142 @@
+"""Per-group Adam over the Gaussian parameters, as plain tensor code.
+
+Port of ``train/optim.py`` (an ``optax.multi_transform`` of per-group Adam
+there): the reference's learning rates per group, Adam eps 1e-15, the xyz
+group on the exponential schedule scaled by ``spatial_lr_scale``, ``f_rest``
+at feature_lr / 20 and ``normals`` frozen. The state is one ``AdamGroup``
+(mu, nu, count) per optimized leaf of ``GaussianParams``, so densification
+can zero a group's rows (``train/densify.py``).
+
+One update follows ``optax.scale_by_adam`` then ``scale_by_learning_rate``:
+
+    mu    = (1 - b1) g + b1 mu
+    nu    = (1 - b2) g^2 + b2 nu
+    count = count + 1
+    p     = p + (-lr(count_before)) * (mu / (1 - b1^count))
+                                     / (sqrt(nu / (1 - b2^count)) + eps)
+
+The learning rate and the bias corrections are float32 values computed on
+the host from the step count, which the state keeps as a Python int.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Callable, NamedTuple
+
+import numpy as np
+import torch
+
+from neuralgaussiansplatting_torch.models.gaussians import GaussianParams
+
+
+@dataclasses.dataclass(frozen=True)
+class OptimizationParams:
+    """The reference's optimization arguments, with its defaults."""
+
+    iterations: int = 30_000
+    position_lr_init: float = 0.00016
+    position_lr_final: float = 0.0000016
+    position_lr_delay_mult: float = 0.01
+    position_lr_max_steps: int = 30_000
+    feature_lr: float = 0.0025
+    opacity_lr: float = 0.05
+    scaling_lr: float = 0.005
+    rotation_lr: float = 0.001
+    percent_dense: float = 0.01
+    lambda_dssim: float = 0.2
+    densification_interval: int = 100
+    opacity_reset_interval: int = 3000
+    densify_from_iter: int = 500
+    densify_until_iter: int = 15_000
+    densify_grad_threshold: float = 0.0002
+    random_background: bool = False
+
+
+def expon_lr_schedule(lr_init, lr_final, lr_delay_steps=0, lr_delay_mult=1.0,
+                      max_steps=1_000_000) -> Callable[[int], float]:
+    """Log-lerp decay from ``lr_init`` to ``lr_final`` over ``max_steps``
+    with an optional sine delay; the rate is computed in float32."""
+    f32 = np.float32
+
+    def schedule(step: int) -> float:
+        step = f32(step)
+        if lr_init == 0.0 and lr_final == 0.0:
+            return 0.0
+        if lr_delay_steps > 0:
+            delay_rate = f32(lr_delay_mult) + f32(1 - lr_delay_mult) * np.sin(
+                f32(0.5 * math.pi) * np.clip(step / f32(lr_delay_steps),
+                                             f32(0), f32(1)))
+        else:
+            delay_rate = f32(1.0)
+        t = np.clip(step / f32(max_steps), f32(0), f32(1))
+        log_lerp = np.exp(np.log(f32(lr_init)) * (f32(1) - t)
+                          + np.log(f32(lr_final)) * t)
+        return float(f32(delay_rate * log_lerp))
+
+    return schedule
+
+
+class AdamGroup(NamedTuple):
+    """Adam state of one parameter group."""
+
+    mu: torch.Tensor
+    nu: torch.Tensor
+    count: int
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Adam:
+    """Adam over the leaves of ``GaussianParams`` named in ``lrs`` (a
+    constant rate or a schedule of the step count); other leaves stay as
+    they are."""
+
+    lrs: dict
+    b1: float = 0.9
+    b2: float = 0.999
+    eps: float = 1e-15
+
+    def init(self, params: GaussianParams) -> dict:
+        return {name: AdamGroup(torch.zeros_like(getattr(params, name)),
+                                torch.zeros_like(getattr(params, name)), 0)
+                for name in self.lrs}
+
+    def update(self, grads: GaussianParams, state: dict,
+               params: GaussianParams):
+        """One Adam step: returns (new params, new state)."""
+        f32 = np.float32
+        new_params = params._asdict()
+        new_state = {}
+        for name, lr in self.lrs.items():
+            g = getattr(grads, name)
+            mu, nu, count = state[name]
+            rate = lr(count) if callable(lr) else lr
+            mu = (1 - self.b1) * g + self.b1 * mu
+            nu = (1 - self.b2) * (g * g) + self.b2 * nu
+            count += 1
+            bc1 = float(f32(1) - f32(self.b1) ** f32(count))
+            bc2 = float(f32(1) - f32(self.b2) ** f32(count))
+            step = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
+            new_params[name] = getattr(params, name) + float(f32(-rate)) * step
+            new_state[name] = AdamGroup(mu, nu, count)
+        return GaussianParams(**new_params), new_state
+
+
+def make_optimizer(opt: OptimizationParams, spatial_lr_scale: float) -> Adam:
+    """The reference's per-group Adam; ``normals`` are frozen (no group)."""
+    xyz_schedule = expon_lr_schedule(
+        lr_init=opt.position_lr_init * spatial_lr_scale,
+        lr_final=opt.position_lr_final * spatial_lr_scale,
+        lr_delay_mult=opt.position_lr_delay_mult,
+        max_steps=opt.position_lr_max_steps,
+    )
+    return Adam(lrs={
+        "xyz": xyz_schedule,
+        "features_dc": opt.feature_lr,
+        "features_rest": opt.feature_lr / 20.0,
+        "features": opt.feature_lr,
+        "scaling": opt.scaling_lr,
+        "rotation": opt.rotation_lr,
+        "opacity": opt.opacity_lr,
+    })

@@ -4,7 +4,8 @@ The plain version of K1 (``blend_tiles_seq_reference``, what the seq backend
 runs on the CPU) is held against the JAX seq kernel in interpret mode on the
 same ``Instances`` and attributes, with the gates of tests/test_blend_seq.py:
 color and final T to atol 5e-5, n_contrib equal on >= 99.9 % of pixels. K1
-itself runs only on a GPU (tests/test_torch_cuda.py).
+itself runs only on a GPU (tests/test_torch_cuda.py); the backward (K2)
+is held against JAX in tests/test_torch_blend_bwd.py.
 """
 
 import jax
@@ -16,39 +17,19 @@ import torch
 from neuralgaussiansplatting_tpu.ops import blend as jblend
 from neuralgaussiansplatting_tpu.ops import blend_seq as jseq
 from neuralgaussiansplatting_tpu.ops import binning as jbin
-from neuralgaussiansplatting_torch.ops import binning as tbin
 from neuralgaussiansplatting_torch.ops import blend as tblend
 from neuralgaussiansplatting_torch.ops import blend_pallas as tpack
 from neuralgaussiansplatting_torch.ops import blend_seq as tseq
-from neuralgaussiansplatting_torch.ops import preprocess as tpp
 from neuralgaussiansplatting_torch.ops import rasterize as trast
 
 from scenes import make_camera, random_gaussians
-from torch_parity import port_camera, to_torch
+from torch_parity import port_camera, port_stage_inputs as _port_stage_inputs
+from torch_parity import to_torch
 
 torch.set_num_threads(2)
 
 _jax_seq = jax.jit(jseq.blend_tiles_seq, static_argnums=(5, 6, 7, 8, 9))
 _jax_scan = jax.jit(jblend.blend_tiles, static_argnums=(5, 6, 7, 8, 9, 10))
-
-
-def _port_stage_inputs(n, deg, seed, opacity=None, block=32, chunk=128):
-    """Preprocess + bin on the port (CPU): the (Instances, attrs) both blend
-    implementations are fed."""
-    cam = make_camera(W=64, H=64)
-    means, scales, rot, opac, shs = random_gaussians(n=n, deg=deg, seed=seed)
-    if opacity is not None:
-        opac = np.full_like(opac, opacity)
-    pre = tpp.preprocess_gaussians(
-        *map(to_torch, (means, scales, rot, opac, shs)), deg,
-        port_camera(cam), block, block, tight=True)
-    t = 64 // block
-    inst = tbin.bin_gaussians(pre, t, t, 1 << 13, 1024, chunk,
-                              pack_keys=True, precise_cull=True,
-                              block_x=block, block_y=block, width=64,
-                              height=64)
-    attrs = (pre.means2d, pre.conic, pre.opacity, pre.rgb)
-    return inst, attrs, t
 
 
 def _as_jax(inst, attrs):
@@ -125,10 +106,23 @@ def test_unported_or_mismatched_backends_raise(kw, exc):
 
 
 def test_seq_blend_refuses_tensors_that_need_grad():
+    """The kernel wrappers refuse tensors that require grad (a launch would
+    drop the gradient); ``blend_tiles_seq``, their autograd entry, takes
+    them and gives every attribute a gradient."""
     inst, attrs, t = _port_stage_inputs(40, 1, 4)
-    means2d = attrs[0].clone().requires_grad_()
-    with pytest.raises(NotImplementedError):
-        tseq.blend_tiles_seq(inst, means2d, *attrs[1:], t, t, 32, 32, 1024)
+    packed = tpack.pack_gather(tpack.pack_instance_attrs_t(*attrs), inst.gid)
+    args = (inst.tile_start, inst.tile_count)
+    raw = tseq.blend_seq_fwd(packed, *args, t)
+    with pytest.raises(ValueError):
+        tseq.blend_seq_fwd(packed.clone().requires_grad_(), *args, t)
+    with pytest.raises(ValueError):
+        tseq.blend_seq_bwd(packed, *args, raw.clone().requires_grad_(),
+                           torch.ones_like(raw), t)
+    leaves = [a.clone().requires_grad_() for a in attrs]
+    res = tseq.blend_tiles_seq(inst, *leaves, t, t, 32, 32, 1024)
+    (res.color.sum() + res.final_t.sum()).backward()
+    for leaf in leaves:
+        assert leaf.grad is not None and leaf.grad.abs().sum() > 0
 
 
 def test_k1_wrapper_validates_inputs():
@@ -142,3 +136,13 @@ def test_k1_wrapper_validates_inputs():
         tseq.blend_seq_fwd(packed[:8], start, start, 2)
     with pytest.raises(ValueError):
         tseq.blend_seq_fwd(packed, start, start, 3)
+
+
+def test_expand_auto_is_the_scatter_expansion():
+    cam = port_camera(make_camera(W=32, H=32))
+    arrays = list(map(to_torch, random_gaussians(n=30, deg=0, seed=3)))
+    outs = [trast.rasterize(*arrays, 0, cam, torch.zeros(3),
+                            trast.make_settings("seq", expand=mode))
+            for mode in ("auto", "scatter")]
+    assert torch.equal(outs[0].color, outs[1].color)
+    assert int(outs[0].num_rendered) == int(outs[1].num_rendered) > 0

@@ -158,7 +158,9 @@ def test_port_and_chip_smoke_never_import_jax():
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'jaxlib', 'neuralgaussiansplatting_tpu')]\n"
         "assert not bad, bad\n"
-        "assert 'neuralgaussiansplatting_torch.ops.blend_seq' in sys.modules\n"
+        "for name in ('ops.blend_seq', 'train.loop', 'train.densify',\n"
+        "             'train.optim', 'utils.losses', 'utils.general'):\n"
+        "    assert 'neuralgaussiansplatting_torch.' + name in sys.modules\n"
         "print('ok')\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,

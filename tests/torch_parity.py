@@ -9,9 +9,10 @@ import numpy as np
 import torch
 
 from neuralgaussiansplatting_tpu.ops import preprocess as jpp
+from neuralgaussiansplatting_torch.ops import binning as tbin
 from neuralgaussiansplatting_torch.ops import preprocess as tpp
 
-from scenes import random_gaussians
+from scenes import make_camera, random_gaussians
 
 
 def to_torch(x) -> torch.Tensor:
@@ -45,3 +46,40 @@ def scene_inputs(n=250, deg=1, seed=3):
 jax_preprocess = jax.jit(jpp.preprocess_gaussians,
                          static_argnames=("sh_degree", "block_x", "block_y",
                                           "tight"))
+
+
+def port_stage_inputs(n, deg, seed, opacity=None, block=32, chunk=128,
+                      max_per_tile=1024, **scene):
+    """Preprocess + bin on the port (CPU) at 64x64: the (Instances, attrs,
+    tiles per side) both packages' blend stages are fed. ``scene`` goes to
+    ``random_gaussians``."""
+    cam = make_camera(W=64, H=64)
+    means, scales, rot, opac, shs = random_gaussians(n=n, deg=deg, seed=seed,
+                                                     **scene)
+    if opacity is not None:
+        opac = np.full_like(opac, opacity)
+    pre = tpp.preprocess_gaussians(
+        *map(to_torch, (means, scales, rot, opac, shs)), deg,
+        port_camera(cam), block, block, tight=True)
+    t = 64 // block
+    inst = tbin.bin_gaussians(pre, t, t, 1 << 13, max_per_tile, chunk,
+                              pack_keys=True, precise_cull=True,
+                              block_x=block, block_y=block, width=64,
+                              height=64)
+    attrs = (pre.means2d, pre.conic, pre.opacity, pre.rgb)
+    return inst, attrs, t
+
+
+def jax_opt_groups(opt_state) -> dict:
+    """{GaussianParams field: (mu, nu, count)} of a state of the JAX
+    package's ``train.optim.make_optimizer``, as numpy."""
+    from neuralgaussiansplatting_tpu.train.optim import PARAM_LABELS
+    groups = {}
+    for field, label in PARAM_LABELS._asdict().items():
+        if label == "frozen":
+            continue
+        adam = opt_state.inner_states[label].inner_state[0]
+        groups[field] = (np.asarray(getattr(adam.mu, field)),
+                         np.asarray(getattr(adam.nu, field)),
+                         int(adam.count))
+    return groups
