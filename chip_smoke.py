@@ -2,22 +2,32 @@
 
     python3 chip_smoke.py
 
-Builds every CUDA kernel of the render and training paths from csrc/ (K1,
-the tile blend, and K2, its backward), holds each against its plain
-PyTorch version at the shapes of the bench workload (800x800, 100k
-Gaussians, SH degree 3, the bench rasterizer settings), then drives the
-paths as a user would: a demo cloud saved to PLY, loaded back and rendered
-from four cameras through ``gaussian_renderer.render``; 20 training steps
-through ``train.loop.train_step``; 30 iterations of ``train.loop.Trainer``
-with densification. Each path checks that it went through the kernels. It
-prints one JSON line of per-kernel numbers, the card's name and power
-limit, and as its last line ``{"ok": true, "device": {...}}``. Any failed
-check exits non-zero before that line. Needs a CUDA device and nvcc
-(CUDA_HOME or /usr/local/cuda); imports nothing of JAX.
+Builds every CUDA kernel of the port from csrc/ (K1, the tile blend; K2,
+its backward; K3, the neural path's z-buffer), holds each against its plain
+PyTorch version at the shapes of its workload, then drives the paths as a
+user would.
+
+Classic path (800x800, 100k Gaussians, SH degree 3, the bench rasterizer
+settings): a demo cloud saved to PLY, loaded back and rendered from four
+cameras through ``gaussian_renderer.render``; 20 training steps through
+``train.loop.train_step``; 30 iterations of ``train.loop.Trainer`` with
+densification.
+
+Neural path (800x800, 100k Gaussians, SH degree 1, seeded 64-d features,
+full-width decoders): the tiled z-buffer against the per-pixel sort oracle;
+a 64x64 card-vs-CPU reference; ``render1/2/3`` from four cameras; 10 steps
+of ``train.neural_loop.NeuralTrainer(sw=2)``.
+
+Each path checks that it went through its kernels. It prints one JSON line
+of per-kernel numbers, the card's name and power limit, and as its last
+line ``{"ok": true, "device": {...}}``. Any failed check exits non-zero
+before that line. Needs a CUDA device and nvcc (CUDA_HOME or
+/usr/local/cuda); imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import math
@@ -31,16 +41,21 @@ import time
 import torch
 
 from neuralgaussiansplatting_torch import demo
+from neuralgaussiansplatting_torch import gaussian_renderer as gr
 from neuralgaussiansplatting_torch.gaussian_renderer import render
 from neuralgaussiansplatting_torch.models import gaussians as gm
+from neuralgaussiansplatting_torch.models import nets
 from neuralgaussiansplatting_torch.ops import _build
 from neuralgaussiansplatting_torch.ops import binning
 from neuralgaussiansplatting_torch.ops import blend_pallas
 from neuralgaussiansplatting_torch.ops import blend_seq
+from neuralgaussiansplatting_torch.ops import idxmap as idxmap_ops
 from neuralgaussiansplatting_torch.ops import preprocess as pp
 from neuralgaussiansplatting_torch.ops import blend as blend_plain
 from neuralgaussiansplatting_torch.ops import rasterize as rast
+from neuralgaussiansplatting_torch.ops import zbuffer_pallas
 from neuralgaussiansplatting_torch.train import loop
+from neuralgaussiansplatting_torch.train import neural_loop
 from neuralgaussiansplatting_torch.train import optim
 from neuralgaussiansplatting_torch.utils import losses
 
@@ -79,6 +94,21 @@ JAX_GATE = (5e-4, 5e-3)  # gradient atol (x max |row|), rtol: the JAX seq gate
 SAME_CARD_REL = 1e-5
 TRAIN_STEPS = 20
 TRAINER_ITERS = 30
+# The neural path: tools/bench_suite.py's neural configuration (800x800,
+# the demo cloud of 100k Gaussians at SH degree 1, render2, z-buffer
+# capacity 2^19 tile instances), with seeded 64-d features.
+NEURAL_SH = 1
+TILE_CAPACITY = 1 << 19     # z-buffer tile instances
+ORACLE_CAPACITY = 1 << 21   # the per-pixel sort oracle's pixel instances
+NEURAL_STEPS = 10
+# K3, per (instance, pixel) pair where the instance's rect covers the pixel
+# (what a per-pixel argmin over rects needs; the kernel's rect test of the
+# pairs it does not cover is its own cost): 3 compares, 1 and, 1 or
+# (nearer, or as near with a lower id), 2 selects. These are 32-bit integer
+# and float compare/logic/select operations; the data sheet lists no INT32
+# rate, so the bound takes its FP32 rate, which no 32-bit ALU operation
+# beats: the bound stays a lower limit.
+K3_OPS_PER_PAIR = 7
 
 
 def fail(msg: str):
@@ -143,7 +173,7 @@ def k1_inputs(params, state, cam, mark=lambda stage: None):
 
 def phase_build():
     t0 = time.perf_counter()
-    logs = _build.build(["blend_seq_fwd", "blend_seq_bwd"])
+    logs = _build.build(["blend_seq_fwd", "blend_seq_bwd", "zbuffer_fwd"])
     print(f"build: {time.perf_counter() - t0:.1f} s "
           f"({', '.join(logs) or 'cached'})")
     for name, log in logs.items():
@@ -644,6 +674,320 @@ def phase_breakdown(params, state):
     report_profile(prof, wall_ms, renders, "render")
 
 
+def neural_scene():
+    """The neural workload's cloud on the card, with seeded features."""
+    params, state, _ = demo.demo_scene(n=N, w=W, h=H, sh_degree=NEURAL_SH)
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    return params._replace(features=torch.randn(
+        params.features.shape, generator=gen, device="cuda")), state
+
+
+def k3_covered_pairs(rects, tile_start, tile_count, tiles_x) -> int:
+    """The (instance, pixel) pairs of K3's input where the instance's rect
+    covers a pixel of its tile."""
+    count = tile_count.long()
+    tile = torch.repeat_interleave(
+        torch.arange(count.shape[0], device=count.device), count)
+    first = torch.cumsum(count, 0) - count
+    col = (torch.repeat_interleave(tile_start.long(), count)
+           + torch.arange(tile.shape[0], device=count.device)
+           - torch.repeat_interleave(first, count))
+    x0, y0, x1, y1 = rects[:4, col].long()
+    tx = (tile % tiles_x) * zbuffer_pallas.BX
+    ty = (tile // tiles_x) * zbuffer_pallas.BY
+    cover_x = (torch.minimum(x1, tx + zbuffer_pallas.BX)
+               - torch.maximum(x0, tx)).clamp_min(0)
+    cover_y = (torch.minimum(y1, ty + zbuffer_pallas.BY)
+               - torch.maximum(y0, ty)).clamp_min(0)
+    return int((cover_x * cover_y).sum())
+
+
+def phase_k3_parity(params, state):
+    """K3 vs its plain version on the card at the neural workload's shapes,
+    and the tiled idxmap vs the per-pixel sort oracle."""
+    cam = demo.demo_camera(W, H)
+    args, _, demand = zbuffer_pallas.zbuf_inputs(params.xyz, cam,
+                                                 TILE_CAPACITY, state.alive)
+    rects, depth, tile_start, tile_count, tiles_x = args
+    idx_t = zbuffer_pallas.compute_idxmap_tiled(params.xyz, cam,
+                                                TILE_CAPACITY, state.alive)[0]
+    got = zbuffer_pallas.zbuf_tiles(*args)
+    torch.cuda.synchronize()
+    want = zbuffer_pallas.zbuf_tiles_reference(*args)
+    ids_equal = torch.equal(got[0], want[0])
+    bits_equal = torch.equal(got[1].view(torch.int32),
+                             want[1].view(torch.int32))
+    err = (got[1] - want[1]).abs().max().item()
+    idx_o, _, num_inst = idxmap_ops.compute_idxmap(params.xyz, cam,
+                                                   ORACLE_CAPACITY,
+                                                   state.alive)
+    n_inst = int(tile_count.sum())
+    num_tiles = tile_count.shape[0]
+    hit_rate = (idx_t >= 0).float().mean().item()
+    print(f"k3 parity: tiles {num_tiles}, K {rects.shape[1]}, instances "
+          f"{n_inst} (demand {int(demand)} of {TILE_CAPACITY}), most in a "
+          f"tile {int(tile_count.max())}; ids equal {ids_equal}, depths "
+          f"bit-equal {bits_equal}; oracle pixel instances {int(num_inst)} "
+          f"of {ORACLE_CAPACITY}; hit rate {hit_rate:.4f}")
+    check(ids_equal and bits_equal, "K3 disagrees with its plain version")
+    check(int(demand) <= TILE_CAPACITY, f"tile demand {int(demand)}")
+    check(int(num_inst) <= ORACLE_CAPACITY,
+          f"oracle demand {int(num_inst)} past its capacity")
+    check(torch.equal(idx_t, idx_o), "tiled idxmap differs from the oracle")
+    print("k3 parity: tiled idxmap equal to the per-pixel sort oracle at "
+          "every pixel")
+
+    ms = cuda_ms(lambda: zbuffer_pallas.zbuf_tiles(*args), reps=50, warmup=3)
+    plain_ms = cuda_ms(
+        lambda: zbuffer_pallas.zbuf_tiles_reference(*args), reps=2)
+    pairs = k3_covered_pairs(rects, tile_start, tile_count, tiles_x)
+    check(pairs == int(num_inst), f"{pairs} covered pairs, the oracle "
+          f"expanded {int(num_inst)} pixel instances")
+    ops = pairs * K3_OPS_PER_PAIR
+    nbytes = ((zbuffer_pallas.RECT_ROWS + 1) * 4 * n_inst + 2 * num_tiles * 4
+              + 2 * num_tiles * zbuffer_pallas.PIX * 4)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    print(f"k3 timing: {ms:.4f} ms/launch (50 launches), plain version "
+          f"{plain_ms:.1f} ms; {pairs} covered (instance, pixel) pairs (the "
+          f"oracle's pixel instances {int(num_inst)}; the kernel tests "
+          f"{n_inst * zbuffer_pallas.PIX}) x {K3_OPS_PER_PAIR} ops = "
+          f"{ops:.4g} ops at the FP32 rate "
+          f"-> {t_ops:.4f} ms; {nbytes} bytes -> {t_bytes:.4f} ms")
+    return {"name": "zbuffer_fwd", "route": "cuda",
+            "source": "neuralgaussiansplatting_torch/csrc/zbuffer_fwd.cu",
+            "replaces": "neuralgaussiansplatting_tpu/ops/zbuffer_pallas.py:47",
+            "launches": None, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": None}
+
+
+def phase_small_neural_reference():
+    """The neural path on the card vs on the CPU (K3's plain version) at
+    64x64 with narrow decoders: idxmap, feature map, the features' gradient
+    and render1/2/3."""
+    params, state, _ = demo.demo_scene(n=600, w=64, h=64, seed=3,
+                                       sh_degree=NEURAL_SH, device="cpu")
+    gen = torch.Generator().manual_seed(4)
+    params = params._replace(features=torch.randn(params.features.shape,
+                                                  generator=gen))
+    narrow = {"mlp": nets.FeatureToRGBMLP(hidden_features=32),
+              "unet": nets.UNet(base_channels=8),
+              "cnn": nets.CNN(mid_channels=16),
+              "pure_cnn": nets.PureCNN(mid_channels=16)}
+    for module in narrow.values():
+        nets.kaiming_init_(module, gen)
+    cot = torch.randn((64, 64, idxmap_ops.NUM_FEATURES), generator=gen)
+    dev = torch.device("cuda")
+    sides = {
+        "cpu": (params, state.alive, narrow,
+                demo.demo_camera(64, 64, 0.3, device="cpu")),
+        "cuda": (gm.GaussianParams(*(a.to(dev) for a in params)),
+                 state.alive.to(dev),
+                 {k: copy.deepcopy(m).to(dev) for k, m in narrow.items()},
+                 demo.demo_camera(64, 64, 0.3, device=dev)),
+    }
+    maps, grads = {}, {}
+    for side, (p, alive, _, cam) in sides.items():
+        for _ in range(2 if side == "cuda" else 1):
+            f = p.features.detach().clone().requires_grad_()
+            maps[side] = idxmap_ops.render_idxmaps(p.xyz, f, cam, 1 << 13,
+                                                   alive)
+            (maps[side].featuremap * cot.to(f.device)).sum().backward()
+            grads.setdefault(side, []).append(f.grad)
+    check(torch.equal(maps["cuda"].idxmap.cpu(), maps["cpu"].idxmap),
+          "idxmap differs between the card and the CPU")
+    fmap_err = (maps["cuda"].featuremap.detach().cpu()
+                - maps["cpu"].featuremap.detach()).abs().max().item()
+    g_cpu = grads["cpu"][0]
+    g_err = ((grads["cuda"][0].cpu() - g_cpu).abs().max().item()
+             / g_cpu.abs().max().item())
+    check(fmap_err <= 1e-6, f"feature map differs by {fmap_err}")
+    check(g_err <= 1e-6, f"feature gradient differs by {g_err} of its scale")
+    check(torch.equal(grads["cuda"][0], grads["cuda"][1]),
+          "two backward passes on the card differ")
+
+    want = {}
+    with torch.no_grad():
+        p, alive, dec, cam = sides["cpu"]
+        for sw, fn in neural_loop.RENDER_FNS.items():
+            want[sw] = fn(cam, p, dec, 1 << 13, alive=alive)["render"]
+
+    def render_errors():
+        errs = {}
+        with torch.no_grad():
+            p, alive, dec, cam = sides["cuda"]
+            for sw, fn in neural_loop.RENDER_FNS.items():
+                got = fn(cam, p, dec, 1 << 13, alive=alive)["render"].cpu()
+                errs[sw] = ((got - want[sw]).abs().max().item()
+                            / want[sw].abs().max().item())
+        return errs
+
+    cudnn = torch.backends.cudnn
+    saved = cudnn.allow_tf32
+    cudnn.allow_tf32 = False
+    try:
+        strict = render_errors()
+    finally:
+        cudnn.allow_tf32 = saved
+    default = render_errors()
+    print(f"small neural reference: 64x64 card vs CPU: idxmap equal, feature "
+          f"map max|d| {fmap_err:.3e} (1e-6), features gradient max|d| / "
+          f"scale {g_err:.3e} (1e-6), two card backward passes bit-equal; "
+          "render1/2/3 max|d| / scale with cuDNN TF32 off "
+          + ", ".join(f"{e:.3e}" for e in strict.values())
+          + " (1e-5), at PyTorch's defaults (cuDNN TF32 "
+          f"{saved}) " + ", ".join(f"{e:.3e}" for e in default.values()))
+    for sw, e in strict.items():
+        check(e <= 1e-5, f"render{sw} on the card differs by {e} of scale")
+
+
+def phase_neural_serve(params, state):
+    """render1/2/3 from four cameras with full-width decoders."""
+    cams = [demo.demo_camera(W, H, angle) for angle in VIEWS]
+    decoders = gr.init_decoders(0, device="cuda")
+    paths = {"render1": gr.render1, "render2": gr.render2,
+             "render3": gr.render3}
+
+    def run(fn, cam):
+        return fn(cam, params, decoders, TILE_CAPACITY, alive=state.alive)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zbuffer_pallas.launches = 0
+    with torch.no_grad():
+        outs = {name: [run(fn, cam) for cam in cams]
+                for name, fn in paths.items()}
+    torch.cuda.synchronize()
+    launches = zbuffer_pallas.launches
+    renders = len(paths) * len(cams)
+    check(launches == renders, f"K3 launched {launches} times for "
+          f"{renders} renders")
+    for name, results in outs.items():
+        for out in results:
+            img = out["render"]
+            check(img.shape == (3, H, W), f"{name} shape {tuple(img.shape)}")
+            check(torch.isfinite(img).all().item(), f"{name} not finite")
+            check(int(out["num_inst"]) <= TILE_CAPACITY,
+                  f"{name} z-buffer demand {int(out['num_inst'])}")
+        print(f"neural serve {name}: 4 views, hit rate "
+              + ", ".join(f"{(o['idxmap'] >= 0).float().mean().item():.4f}"
+                          for o in results)
+              + f"; demand {int(results[0]['num_inst'])}; image mean "
+              f"{results[0]['render'].mean().item():.4f}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"neural serve: K3 launched {launches} times for {renders} "
+          f"renders; peak memory {peak:.2f} GiB")
+
+    latency = {}
+    with torch.no_grad():
+        for name, fn in paths.items():
+            times = []
+            for i in range(8):
+                t0 = time.perf_counter()
+                run(fn, cams[i % len(cams)])
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            latency[name] = statistics.median(times[2:])
+    print("neural serve latency (median of 6, host clock, synchronised): "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in latency.items()))
+
+    # render2's stages by CUDA events around the z-buffer + feature map and
+    # the denoiser; the decoders run between them
+    events = []
+
+    def timed(fn):
+        def wrapper(*args, **kw):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = fn(*args, **kw)
+            e1.record()
+            events.append((e0, e1))
+            return out
+        return wrapper
+
+    real = idxmap_ops.render_idxmaps, nets.denoise
+    idxmap_ops.render_idxmaps, nets.denoise = map(timed, real)
+    split = {"idxmap": [], "decoders": [], "denoise": []}
+    try:
+        with torch.no_grad():
+            for i in range(8):
+                events.clear()
+                run(gr.render2, cams[i % len(cams)])
+                torch.cuda.synchronize()
+                (i0, i1), (d0, d1) = events
+                split["idxmap"].append(i0.elapsed_time(i1))
+                split["decoders"].append(i1.elapsed_time(d0))
+                split["denoise"].append(d0.elapsed_time(d1))
+    finally:
+        idxmap_ops.render_idxmaps, nets.denoise = real
+    print("render2 split (CUDA events, median of 6): " + ", ".join(
+        f"{k} {statistics.median(v[2:]):.3f} ms" for k, v in split.items()))
+
+    from torch.profiler import ProfilerActivity, profile
+    n_renders = 5
+    with torch.no_grad(), profile(activities=[ProfilerActivity.CPU,
+                                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(n_renders):
+            run(gr.render2, cams[i % len(cams)])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    report_profile(prof, wall_ms, n_renders, "render2")
+
+
+def phase_neural_train(params, state):
+    """10 ``NeuralTrainer(sw=2)`` steps towards the classic render (K1) of
+    the same cloud. Returns K3's launches in them."""
+    cam = demo.demo_camera(W, H)
+    with torch.no_grad():
+        gt = render(cam, params, state.alive, NEURAL_SH,
+                    torch.zeros(3, device="cuda"), SETTINGS)["render"]
+    model = gm.GaussianModel(NEURAL_SH)
+    model.params, model.state = params, state
+    trainer = neural_loop.NeuralTrainer(model, sw=2, capacity=TILE_CAPACITY)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zbuffer_pallas.launches = 0
+    step_ms, metrics = [], []
+    for _ in range(NEURAL_STEPS):
+        t0 = time.perf_counter()
+        metrics.append(trainer.step(cam, gt))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = zbuffer_pallas.launches
+    check(launches == NEURAL_STEPS,
+          f"{NEURAL_STEPS} steps launched K3 {launches} times")
+    loss = [m["loss"].item() for m in metrics]
+    check(all(math.isfinite(x) for x in loss), f"loss not finite: {loss}")
+    check(torch.isfinite(trainer.ts.params.features).all().item(),
+          "features not finite")
+    for name, p in neural_loop.decoder_leaves(trainer.ts.net_params).items():
+        check(torch.isfinite(p).all().item(), f"decoder {name} not finite")
+    first, last = statistics.mean(loss[:3]), statistics.mean(loss[-3:])
+    # the loss bursts at step 2 (Adam's first step on random decoders, as
+    # in JAX: tests/test_torch_neural_train.py), so the last step must also
+    # end below the first
+    check(last < first and loss[-1] < loss[0],
+          f"loss did not fall: {loss[0]} -> {loss[-1]}, first 3 {first}, "
+          f"last 3 {last}")
+    step = statistics.median(step_ms[2:])
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"neural train: NeuralTrainer(sw=2), K3 {launches} launches in "
+          f"{NEURAL_STEPS} steps; loss {loss[0]:.5f} -> {loss[-1]:.5f} (mean "
+          f"of first 3 {first:.5f}, last 3 {last:.5f}); psnr "
+          f"{metrics[0]['psnr'].item():.3f} -> "
+          f"{metrics[-1]['psnr'].item():.3f}; hit rate "
+          f"{metrics[-1]['hit_rate'].item():.4f}")
+    print(f"neural train timing: median step {step:.3f} ms (host clock, "
+          f"synchronised, {NEURAL_STEPS - 2} steps), {W * H / step / 1e3:.3f} "
+          f"Mpix/s; peak memory {peak:.2f} GiB")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: the port's kernels run "
@@ -662,6 +1006,12 @@ def main():
     phase_breakdown(loaded, lstate)
     phase_train(loaded, lstate, rows)
     phase_trainer()
+
+    nparams, nstate = neural_scene()
+    rows.append(phase_k3_parity(nparams, nstate))
+    phase_small_neural_reference()
+    phase_neural_serve(nparams, nstate)
+    rows[2]["launches"] = phase_neural_train(nparams, nstate)
 
     print(json.dumps({"kernels": rows}))
     print(card)

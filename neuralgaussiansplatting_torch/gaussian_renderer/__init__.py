@@ -1,7 +1,9 @@
 """Render API (port of the JAX package's ``gaussian_renderer``).
 
-``render`` is the classic 3DGS forward render. The neural-feature paths
-``render1``/``render2``/``render3`` belong to a later slice of the port.
+``render`` is the classic 3DGS render, differentiable through K1/K2.
+``render1``/``render2``/``render3`` are the fork's neural-feature paths: the
+per-pixel z-buffer and feature map (``ops/idxmap.py``, kernel K3), then the
+screen-space decoders of ``models/nets.py``.
 """
 
 from __future__ import annotations
@@ -10,7 +12,10 @@ import dataclasses
 
 import torch
 
+from neuralgaussiansplatting_torch import resolve_device
 from neuralgaussiansplatting_torch.models import gaussians as gm
+from neuralgaussiansplatting_torch.models import nets
+from neuralgaussiansplatting_torch.ops import idxmap as idxmap_ops
 from neuralgaussiansplatting_torch.ops import rasterize as rast
 from neuralgaussiansplatting_torch.ops import sh as sh_ops
 from neuralgaussiansplatting_torch.ops.preprocess import CameraParams
@@ -78,3 +83,78 @@ def render(
         "dropped": out.dropped,
         "culled": out.culled,
     }
+
+
+# ---------------------------------------------------------------------------
+# Neural-feature render paths (the fork's render1/render2/render3)
+# ---------------------------------------------------------------------------
+
+def init_decoders(seed: int | torch.Generator = 0, device="cuda") -> dict:
+    """The screen-space decoders at the reference's widths, as float32
+    modules on ``device``: {"mlp", "unet", "cnn", "pure_cnn"} (the
+    reference's ``GaussianModel._init_networks``; the denoiser has no
+    parameters). Weights are drawn by ``nets.kaiming_init_`` from ``seed``
+    (an int, or a CPU ``torch.Generator``), in that order, so one seed gives
+    the same decoders on every device."""
+    dev = resolve_device(device)
+    gen = (seed if isinstance(seed, torch.Generator)
+           else torch.Generator().manual_seed(int(seed)))
+    with torch.device("meta"):      # no throwaway default initialisation
+        decoders = {"mlp": nets.FeatureToRGBMLP(), "unet": nets.UNet(),
+                    "cnn": nets.CNN(), "pure_cnn": nets.PureCNN()}
+    return {name: nets.kaiming_init_(m.to_empty(device=dev), gen)
+            for name, m in decoders.items()}
+
+
+def _neural_outputs(params, maps, final, **extra):
+    """The return dict of the neural paths. ``radii`` is the reference's
+    all-ones placeholder and visibility is idxmap > 0, which leaves out the
+    Gaussian with id 0, as the reference does."""
+    n = params.xyz.shape[0]
+    return {
+        "render": final.permute(2, 0, 1),
+        **extra,
+        "viewspace_points": params.xyz.new_zeros((n, 2)),
+        "num_inst": maps.num_inst,
+        "idxmap": maps.idxmap,
+        "colmap": maps.colmap,
+        "depthmap": maps.depthmap,
+        "featuremap": maps.featuremap,
+        "visibility_filter": maps.idxmap > 0,
+        "radii": torch.ones(n, dtype=torch.int32, device=params.xyz.device),
+    }
+
+
+def render1(cam: CameraParams, params: gm.GaussianParams, net_params: dict,
+            capacity: int = 1 << 21, dtype=torch.float32, alive=None):
+    """idxmap -> per-pixel MLP (the reference's render1). ``net_params``
+    holds the decoders (``init_decoders``); ``capacity`` counts the
+    z-buffer's tile instances; ``dtype`` is the decoders' compute type."""
+    maps = idxmap_ops.render_idxmaps(params.xyz, params.features, cam,
+                                     capacity, alive)
+    return _neural_outputs(params, maps,
+                           net_params["mlp"](maps.featuremap, dtype))
+
+
+def render2(cam: CameraParams, params: gm.GaussianParams, net_params: dict,
+            capacity: int = 1 << 21, dtype=torch.float32, alive=None):
+    """idxmap -> UNet RGB and CNN 9x9 kernels -> denoiser (the reference's
+    render2); the UNet's RGB is returned as "aggregation" (H, W, 3)."""
+    maps = idxmap_ops.render_idxmaps(params.xyz, params.features, cam,
+                                     capacity, alive)
+    kernels = net_params["cnn"](maps.featuremap, dtype)
+    unet_out = net_params["unet"](maps.featuremap, dtype)
+    return _neural_outputs(params, maps, nets.denoise(unet_out, kernels),
+                           aggregation=unet_out, denoiser=kernels)
+
+
+def render3(cam: CameraParams, params: gm.GaussianParams, net_params: dict,
+            capacity: int = 1 << 21, dtype=torch.float32, alive=None):
+    """idxmap -> MLP aggregation and CNN kernels -> denoiser (the
+    reference's render3)."""
+    maps = idxmap_ops.render_idxmaps(params.xyz, params.features, cam,
+                                     capacity, alive)
+    aggregation = net_params["mlp"](maps.featuremap, dtype)
+    kernels = net_params["cnn"](maps.featuremap, dtype)
+    return _neural_outputs(params, maps, nets.denoise(aggregation, kernels),
+                           aggregation=aggregation, denoiser=kernels)

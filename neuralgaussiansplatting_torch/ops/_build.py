@@ -4,16 +4,21 @@ Each ``csrc/<name>.cu`` exports plain C functions and is compiled on first
 use into ``_build/lib<name>-<hash>.so``, keyed on the hash of the sources
 and flags, so a changed source rebuilds and an unchanged one loads at once.
 Several sources build in parallel, one nvcc each. Nothing here runs at
-import time; each kernel module caches its loaded library.
+import time. Each library exports ``<name>(..., stream)``, which launches
+and returns ``cudaGetLastError()``, and ``<name>_error(code)``, its message;
+``launch`` calls the first and raises with the second.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
+
+import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -84,3 +89,48 @@ def load(name: str) -> ctypes.CDLL:
     """Load the library of kernel ``name``, building it first if needed."""
     build([name])
     return ctypes.CDLL(_target(name)[1])
+
+
+@functools.cache
+def _entry(name: str, argtypes: tuple):
+    """(launch function, error-message function) of kernel ``name``."""
+    lib = load(name)
+    fn = getattr(lib, name)
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    err = getattr(lib, name + "_error")
+    err.argtypes = [ctypes.c_int]
+    err.restype = ctypes.c_char_p
+    return fn, err
+
+
+def launch(name: str, argtypes: tuple, device: torch.device, *args):
+    """Launch kernel ``name`` on ``device``'s current stream; ``argtypes``
+    are the ctypes of ``args`` and a last ``c_void_p``, the stream. Raises
+    RuntimeError if the launch is refused."""
+    fn, err = _entry(name, argtypes)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        code = fn(*args, stream)
+    if code:
+        raise RuntimeError(f"{name} launch failed: {err(code).decode()}")
+
+
+def on_cuda(name: str, tensors, grad_entry: str | None = None) -> bool:
+    """Whether kernel ``name`` launches for ``tensors`` (True on CUDA) or its
+    plain version runs (False on the CPU). Refuses what a kernel cannot
+    take: tensors that require grad (a launch would drop their gradient;
+    ``grad_entry`` names the differentiable entry, if there is one), another
+    device, non-contiguous memory."""
+    if torch.is_grad_enabled() and any(a.requires_grad for a in tensors):
+        raise ValueError(f"{name} takes no tensors that require grad"
+                         + (f"; differentiate through {grad_entry}"
+                            if grad_entry else ""))
+    dev = tensors[0].device
+    if dev.type == "cpu":
+        return False
+    if dev.type != "cuda":
+        raise ValueError(f"no {name} kernel for device {dev}")
+    if not all(a.is_contiguous() for a in tensors):
+        raise ValueError(f"{name} takes contiguous tensors")
+    return True

@@ -38,6 +38,25 @@ def pack_instance_attrs_t(means2d, conic, opacity, rgb):
     return torch.cat([packed, packed.new_zeros((PROWS, 1))], dim=1)
 
 
+def sum_rows_by_id(rows: torch.Tensor, ids: torch.Tensor,
+                   n: int) -> torch.Tensor:
+    """(K, C) rows -> (n, C) sums of the rows of each id in [0, n).
+
+    Rows with ``id == n`` (padding) are left out. Each id's rows are added
+    in row order: a stable sort by id, then one sum per id's run, so the
+    result repeats bit for bit (no atomics).
+    """
+    ids = ids.long()
+    order = torch.argsort(ids, stable=True)
+    starts = torch.searchsorted(ids[order],
+                                torch.arange(n + 1, device=ids.device))
+    # n segments [starts[g], starts[g + 1]); the padding run after
+    # starts[n] is not one of them. unsafe=True skips validation that would
+    # sync the host; the offsets are monotone and within [0, K].
+    return torch.segment_reduce(rows[order], "sum", offsets=starts, axis=0,
+                                unsafe=True)
+
+
 def reduce_by_gaussian(cot9: torch.Tensor, gid: torch.Tensor,
                        n: int) -> torch.Tensor:
     """(9, K) per-slot rows -> (9, n + 1) per-Gaussian sums.
@@ -45,17 +64,7 @@ def reduce_by_gaussian(cot9: torch.Tensor, gid: torch.Tensor,
     Slots with ``gid == n`` (padding) are left out, and column n (the
     sentinel) is zero. Each Gaussian's slots are added in slot order.
     """
-    gid = gid.long()
-    order = torch.argsort(gid, stable=True)
-    sorted_gid = gid[order]
-    rows = cot9.t()[order]                             # (K, 9), by Gaussian
-    starts = torch.searchsorted(
-        sorted_gid, torch.arange(n + 1, device=gid.device))
-    # n segments [starts[g], starts[g + 1]); the padding run after
-    # starts[n] is not one of them. unsafe=True skips validation that would
-    # sync the host; the offsets are monotone and within [0, K].
-    sums = torch.segment_reduce(rows, "sum", offsets=starts, axis=0,
-                                unsafe=True)           # (n, 9)
+    sums = sum_rows_by_id(cot9.t(), gid, n)            # (n, 9)
     return torch.cat([sums, sums.new_zeros((1, PROWS))]).t().contiguous()
 
 

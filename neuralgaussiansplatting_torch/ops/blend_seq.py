@@ -17,7 +17,6 @@ and ``bwd_launches`` count the K1 and K2 launches.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
@@ -40,22 +39,8 @@ bwd_launches = 0  # K2 launches since the caller last set it to 0
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # the C signatures of csrc/blend_seq_{fwd,bwd}.cu (the last pointer is the
 # stream)
-_ARGTYPES = {
-    "blend_seq_fwd": [_P, _P, _P, _LL, _I, _I, _I, _P, _P],
-    "blend_seq_bwd": [_P, _P, _P, _LL, _P, _P, _I, _I, _I, _P, _P],
-}
-
-
-@functools.cache
-def _lib(name: str) -> ctypes.CDLL:
-    lib = _build.load(name)
-    fn = getattr(lib, name)
-    fn.argtypes = _ARGTYPES[name]
-    fn.restype = ctypes.c_int
-    err = getattr(lib, name + "_error")
-    err.argtypes = [ctypes.c_int]
-    err.restype = ctypes.c_char_p
-    return lib
+_FWD_ARGS = (_P, _P, _P, _LL, _I, _I, _I, _P, _P)
+_BWD_ARGS = (_P, _P, _P, _LL, _P, _P, _I, _I, _I, _P, _P)
 
 
 def _check_inputs(packed, tile_start, tile_count, tiles_x, *per_tile):
@@ -85,34 +70,6 @@ def _check_inputs(packed, tile_start, tile_count, tiles_x, *per_tile):
                              f"{packed.device}")
 
 
-def _kernel_device(name, *tensors):
-    """Refuse what a kernel cannot take: tensors that need grad (a launch
-    would drop their gradient; ``blend_tiles_seq`` is the differentiable
-    entry), a device other than the CPU or CUDA, non-contiguous memory.
-    Returns True for CUDA tensors."""
-    if torch.is_grad_enabled() and any(a.requires_grad for a in tensors):
-        raise ValueError(f"{name} takes no tensors that require grad; "
-                         "differentiate through blend_tiles_seq")
-    dev = tensors[0].device
-    if dev.type == "cpu":
-        return False
-    if dev.type != "cuda":
-        raise ValueError(f"no {name} kernel for device {dev}")
-    if not all(a.is_contiguous() for a in tensors):
-        raise ValueError(f"{name} takes contiguous tensors")
-    return True
-
-
-def _launch(name, dev, *args):
-    lib = _lib(name)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = getattr(lib, name)(*args, stream)
-    if err:
-        raise RuntimeError(f"{name} launch failed: "
-                           + getattr(lib, name + "_error")(err).decode())
-
-
 def blend_seq_fwd(packed: torch.Tensor, tile_start: torch.Tensor,
                   tile_count: torch.Tensor, tiles_x: int,
                   track_contrib: bool = True) -> torch.Tensor:
@@ -125,13 +82,14 @@ def blend_seq_fwd(packed: torch.Tensor, tile_start: torch.Tensor,
     """
     global launches
     _check_inputs(packed, tile_start, tile_count, tiles_x)
-    if not _kernel_device("blend_seq_fwd", packed, tile_start, tile_count):
+    if not _build.on_cuda("blend_seq_fwd", (packed, tile_start, tile_count),
+                          "blend_tiles_seq"):
         return blend_tiles_seq_reference(packed, tile_start, tile_count,
                                          tiles_x, track_contrib)
     num_tiles = tile_start.shape[0]
     out = torch.empty((num_tiles, 5, PIX), dtype=torch.float32,
                       device=packed.device)
-    _launch("blend_seq_fwd", packed.device,
+    _build.launch("blend_seq_fwd", _FWD_ARGS, packed.device,
             tile_start.data_ptr(), tile_count.data_ptr(), packed.data_ptr(),
             packed.shape[1], num_tiles, tiles_x, int(track_contrib),
             out.data_ptr())
@@ -154,12 +112,13 @@ def blend_seq_bwd(packed: torch.Tensor, tile_start: torch.Tensor,
     global bwd_launches
     _check_inputs(packed, tile_start, tile_count, tiles_x, ("raw", raw),
                   ("cot", cot))
-    if not _kernel_device("blend_seq_bwd", packed, tile_start, tile_count,
-                          raw, cot):
+    if not _build.on_cuda("blend_seq_bwd",
+                          (packed, tile_start, tile_count, raw, cot),
+                          "blend_tiles_seq"):
         return blend_tiles_seq_bwd_reference(packed, tile_start, tile_count,
                                              raw, cot, tiles_x, track_contrib)
     grad = torch.zeros_like(packed)
-    _launch("blend_seq_bwd", packed.device,
+    _build.launch("blend_seq_bwd", _BWD_ARGS, packed.device,
             tile_start.data_ptr(), tile_count.data_ptr(), packed.data_ptr(),
             packed.shape[1], raw.data_ptr(), cot.data_ptr(),
             tile_start.shape[0], tiles_x, int(track_contrib), grad.data_ptr())

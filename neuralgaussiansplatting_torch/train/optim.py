@@ -28,8 +28,6 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-from neuralgaussiansplatting_torch.models.gaussians import GaussianParams
-
 
 @dataclasses.dataclass(frozen=True)
 class OptimizationParams:
@@ -86,30 +84,37 @@ class AdamGroup(NamedTuple):
     count: int
 
 
+def _leaves(tree) -> dict:
+    """{name: tensor} of a NamedTuple (``GaussianParams``) or a mapping."""
+    return tree._asdict() if hasattr(tree, "_asdict") else dict(tree)
+
+
 @dataclasses.dataclass(frozen=True, eq=False)
 class Adam:
-    """Adam over the leaves of ``GaussianParams`` named in ``lrs`` (a
-    constant rate or a schedule of the step count); other leaves stay as
-    they are."""
+    """Adam over the leaves named in ``lrs`` (each a constant rate or a
+    schedule of the step count) of a ``GaussianParams`` or of a mapping of
+    named tensors; other leaves stay as they are."""
 
     lrs: dict
     b1: float = 0.9
     b2: float = 0.999
     eps: float = 1e-15
 
-    def init(self, params: GaussianParams) -> dict:
-        return {name: AdamGroup(torch.zeros_like(getattr(params, name)),
-                                torch.zeros_like(getattr(params, name)), 0)
+    def init(self, params) -> dict:
+        leaves = _leaves(params)
+        return {name: AdamGroup(torch.zeros_like(leaves[name]),
+                                torch.zeros_like(leaves[name]), 0)
                 for name in self.lrs}
 
-    def update(self, grads: GaussianParams, state: dict,
-               params: GaussianParams):
-        """One Adam step: returns (new params, new state)."""
+    def update(self, grads, state: dict, params):
+        """One Adam step: returns (new params, of ``params``' type, and new
+        state)."""
         f32 = np.float32
-        new_params = params._asdict()
+        grads = _leaves(grads)
+        new_params = _leaves(params)
         new_state = {}
         for name, lr in self.lrs.items():
-            g = getattr(grads, name)
+            g = grads[name]
             mu, nu, count = state[name]
             rate = lr(count) if callable(lr) else lr
             mu = (1 - self.b1) * g + self.b1 * mu
@@ -118,9 +123,11 @@ class Adam:
             bc1 = float(f32(1) - f32(self.b1) ** f32(count))
             bc2 = float(f32(1) - f32(self.b2) ** f32(count))
             step = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
-            new_params[name] = getattr(params, name) + float(f32(-rate)) * step
+            new_params[name] = new_params[name] + float(f32(-rate)) * step
             new_state[name] = AdamGroup(mu, nu, count)
-        return GaussianParams(**new_params), new_state
+        if hasattr(params, "_replace"):
+            return params._replace(**new_params), new_state
+        return new_params, new_state
 
 
 def make_optimizer(opt: OptimizationParams, spatial_lr_scale: float) -> Adam:

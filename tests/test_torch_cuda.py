@@ -8,20 +8,25 @@ The ``cuda`` tests skip where no CUDA device is present (a CUDA kernel has
 no CPU mode); the rest check the build recipe on any host.
 """
 
+import copy
 import os
 
 import pytest
 import torch
 
 from neuralgaussiansplatting_torch import demo
+from neuralgaussiansplatting_torch import gaussian_renderer as gr
 from neuralgaussiansplatting_torch.gaussian_renderer import render
 from neuralgaussiansplatting_torch.models import gaussians as gm
+from neuralgaussiansplatting_torch.models import nets
 from neuralgaussiansplatting_torch.ops import _build
 from neuralgaussiansplatting_torch.ops import binning
 from neuralgaussiansplatting_torch.ops import blend_pallas
 from neuralgaussiansplatting_torch.ops import blend_seq
+from neuralgaussiansplatting_torch.ops import idxmap as idxmap_ops
 from neuralgaussiansplatting_torch.ops import preprocess as pp
 from neuralgaussiansplatting_torch.ops import rasterize as rast
+from neuralgaussiansplatting_torch.ops import zbuffer_pallas
 from neuralgaussiansplatting_torch.train import loop
 from neuralgaussiansplatting_torch.train import optim
 
@@ -41,13 +46,13 @@ def test_build_targets_hopper_and_keys_on_source():
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert "--fmad=false" in _build.NVCC_FLAGS
     libs = set()
-    for name in ("blend_seq_fwd", "blend_seq_bwd"):
+    for name in ("blend_seq_fwd", "blend_seq_bwd", "zbuffer_fwd"):
         src, lib = _build._target(name)
         assert os.path.exists(src)
         assert os.path.dirname(lib) == _build.BUILD_DIR
         assert lib == _build._target(name)[1]
         libs.add(lib)
-    assert len(libs) == 2
+    assert len(libs) == 3
 
 
 def _bench_like_inputs(n, w, h, device="cuda"):
@@ -223,3 +228,83 @@ def test_train_step_repeats_bit_for_bit_on_gpu():
     for name in a.opt_state:
         assert torch.equal(a.opt_state[name].mu, b.opt_state[name].mu), name
         assert torch.equal(a.opt_state[name].nu, b.opt_state[name].nu), name
+
+
+@pytest.mark.cuda
+def test_k3_matches_plain_version_on_gpu():
+    """K3 vs its plain version on the same card and inputs: a random 256²
+    scene (ids equal, depths bit-equal, and the tiled idxmap equal to the
+    per-pixel sort oracle), and two instances at equal depth on one pixel
+    with ids past 2^25, where the lower id must win."""
+    _need_gpu()
+    params, state, cam = demo.demo_scene(n=20_000, w=256, h=256,
+                                         sh_degree=1)
+    args, _, demand = zbuffer_pallas.zbuf_inputs(params.xyz, cam, 1 << 17,
+                                                 state.alive)
+    idx = zbuffer_pallas.compute_idxmap_tiled(params.xyz, cam, 1 << 17,
+                                              state.alive)[0]
+    before = zbuffer_pallas.launches
+    got = zbuffer_pallas.zbuf_tiles(*args)
+    torch.cuda.synchronize()
+    assert zbuffer_pallas.launches == before + 1
+    want = zbuffer_pallas.zbuf_tiles_reference(*args)
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1].view(torch.int32), want[1].view(torch.int32))
+    assert int(demand) <= 1 << 17 and (got[0] >= 0).any()
+    oracle, _, num_inst = idxmap_ops.compute_idxmap(params.xyz, cam, 1 << 20,
+                                                    state.alive)
+    assert int(num_inst) <= 1 << 20 and torch.equal(idx, oracle)
+
+    lo, hi = (1 << 25) + 1, (1 << 25) + 2
+    i32 = dict(dtype=torch.int32, device="cuda")
+    rects = torch.tensor([[0, 0], [0, 0], [1, 1], [1, 1], [hi, lo]], **i32)
+    gid, dmin = zbuffer_pallas.zbuf_tiles(
+        rects, torch.full((2,), 2.0, device="cuda"),
+        torch.zeros(1, **i32), torch.full((1,), 2, **i32), 1)
+    assert gid[0, 0].item() == lo and dmin[0, 0].item() == 2.0
+    assert (gid[0, 1:] == -1).all() and not dmin[0, 1:].any()
+
+
+@pytest.mark.cuda
+def test_neural_paths_on_gpu_match_cpu():
+    """render2 (K3, the decoders, the denoiser) on the card vs the CPU at
+    64x64 with narrow decoders and cuDNN's TF32 off: the same idxmap, and
+    the image and the features' gradient (through the decoders' float32
+    convolutions, which sum in another order there) within 1e-5 of their
+    scales."""
+    _need_gpu()
+    params, state, _ = demo.demo_scene(n=600, w=64, h=64, seed=3,
+                                       sh_degree=1, device="cpu")
+    gen = torch.Generator().manual_seed(4)
+    params = params._replace(features=torch.randn(params.features.shape,
+                                                  generator=gen))
+    decoders = {"unet": nets.UNet(base_channels=8),
+                "cnn": nets.CNN(mid_channels=16)}
+    for module in decoders.values():
+        nets.kaiming_init_(module, gen)
+    cot = torch.randn((3, 64, 64), generator=gen)
+    outs, grads = {}, {}
+    cudnn = torch.backends.cudnn
+    saved = cudnn.allow_tf32
+    cudnn.allow_tf32 = False
+    try:
+        for dev in ("cpu", "cuda"):
+            p = gm.GaussianParams(*(a.to(dev) for a in params))
+            f = p.features.clone().requires_grad_()
+            out = gr.render2(demo.demo_camera(64, 64, 0.3, device=dev),
+                             p._replace(features=f),
+                             {k: copy.deepcopy(m).to(dev)
+                              for k, m in decoders.items()},
+                             1 << 13, alive=state.alive.to(dev))
+            (out["render"] * cot.to(dev)).sum().backward()
+            outs.setdefault(dev, []).append(out)
+            grads.setdefault(dev, []).append(f.grad.cpu())
+    finally:
+        cudnn.allow_tf32 = saved
+    cpu, gpu = outs["cpu"][0], outs["cuda"][0]
+    assert torch.equal(gpu["idxmap"].cpu(), cpu["idxmap"])
+    want = cpu["render"].detach()
+    assert ((gpu["render"].detach().cpu() - want).abs().max()
+            <= 1e-5 * want.abs().max())
+    g = grads["cpu"][0]
+    assert (grads["cuda"][0] - g).abs().max() <= 1e-5 * g.abs().max()

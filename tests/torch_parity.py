@@ -8,7 +8,10 @@ import jax
 import numpy as np
 import torch
 
+from neuralgaussiansplatting_tpu.models import gaussians as jgm
 from neuralgaussiansplatting_tpu.ops import preprocess as jpp
+from neuralgaussiansplatting_torch.models import gaussians as tgm
+from neuralgaussiansplatting_torch.models import nets as tnets
 from neuralgaussiansplatting_torch.ops import binning as tbin
 from neuralgaussiansplatting_torch.ops import preprocess as tpp
 
@@ -68,6 +71,47 @@ def port_stage_inputs(n, deg, seed, opacity=None, block=32, chunk=128,
                               height=64)
     attrs = (pre.means2d, pre.conic, pre.opacity, pre.rgb)
     return inst, attrs, t
+
+
+def neural_cloud(n, capacity, seed, w=16, h=16):
+    """(camera, params, state) of the JAX package for a random cloud of
+    ``n`` points with ``capacity`` slots, viewed at ``w`` x ``h``."""
+    cam = make_camera(W=w, H=h)
+    means = random_gaussians(n=n, deg=0, seed=seed)[0]
+    params, state = jgm.create_from_pcd(
+        means, np.random.default_rng(seed).random((n, 3)), np.zeros((n, 3)),
+        0, capacity=capacity)
+    return cam, params, state
+
+
+def port_model(params, state):
+    """The JAX package's (params, state) as the port's, on the CPU."""
+    return tgm.params_from_numpy(jgm.GaussianParams(*map(np.asarray, params)),
+                                 jgm.GaussianState(*map(np.asarray, state)),
+                                 device="cpu")
+
+
+def port_decoder_tree(jax_tree):
+    """A tree shaped like the JAX package's decoder variables (weights,
+    gradients or Adam moments) as {"<decoder>.<parameter>": array} in the
+    port's layouts."""
+    out = {}
+    for name, tree in jax_tree.items():
+        for key, value in tnets.nets_from_flax(
+                jax.tree.map(np.asarray, tree)).items():
+            out[f"{name}.{key}"] = value.numpy()
+    return out
+
+
+def port_decoders(jax_net_params) -> dict:
+    """The port's decoders holding the weights of the JAX package's
+    ``init_decoders`` tree (full widths), through ``nets_from_flax``."""
+    modules = {"mlp": tnets.FeatureToRGBMLP(), "unet": tnets.UNet(),
+               "cnn": tnets.CNN(), "pure_cnn": tnets.PureCNN()}
+    for name, module in modules.items():
+        module.load_state_dict(tnets.nets_from_flax(
+            jax.tree.map(np.asarray, jax_net_params[name])))
+    return modules
 
 
 def jax_opt_groups(opt_state) -> dict:
