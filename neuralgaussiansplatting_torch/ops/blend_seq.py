@@ -26,7 +26,7 @@ from neuralgaussiansplatting_torch.ops.blend import (
     ALPHA_MAX, ALPHA_MIN, STOP_T, BlendResult, tile_pixel_coords,
 )
 from neuralgaussiansplatting_torch.ops.blend_pallas import (
-    PROWS, pack_gather, pack_instance_attrs_t,
+    check_blend_inputs, pack_gather, pack_instance_attrs_t,
 )
 
 CHUNK = 128      # binning alignment of each tile's instance segment
@@ -46,28 +46,8 @@ _BWD_ARGS = (_P, _P, _P, _LL, _P, _P, _I, _I, _I, _P, _P)
 def _check_inputs(packed, tile_start, tile_count, tiles_x, *per_tile):
     """Validate the kernels' common inputs; ``per_tile`` are (name, tensor)
     pairs that must be (T, 5, 1024) float32 on ``packed``'s device."""
-    if packed.dtype != torch.float32 or packed.ndim != 2 \
-            or packed.shape[0] != PROWS:
-        raise ValueError(f"packed must be ({PROWS}, K) float32, got "
-                         f"{tuple(packed.shape)} {packed.dtype}")
-    for name, a in (("tile_start", tile_start), ("tile_count", tile_count)):
-        if a.dtype != torch.int32 or a.ndim != 1:
-            raise ValueError(f"{name} must be (T,) int32, got "
-                             f"{tuple(a.shape)} {a.dtype}")
-        if a.device != packed.device:
-            raise ValueError(f"{name} is on {a.device}, packed on "
-                             f"{packed.device}")
-    num_tiles = tile_start.shape[0]
-    if tile_count.shape[0] != num_tiles or num_tiles % tiles_x:
-        raise ValueError(f"{num_tiles} tile starts, {tile_count.shape[0]} "
-                         f"counts, {tiles_x} tiles per row")
-    for name, a in per_tile:
-        if a.dtype != torch.float32 or tuple(a.shape) != (num_tiles, 5, PIX):
-            raise ValueError(f"{name} must be ({num_tiles}, 5, {PIX}) "
-                             f"float32, got {tuple(a.shape)} {a.dtype}")
-        if a.device != packed.device:
-            raise ValueError(f"{name} is on {a.device}, packed on "
-                             f"{packed.device}")
+    check_blend_inputs(packed, tile_start, tile_count, tiles_x, PIX,
+                       *per_tile)
 
 
 def blend_seq_fwd(packed: torch.Tensor, tile_start: torch.Tensor,

@@ -22,8 +22,9 @@ def mean_sq_dist_3nn(points: np.ndarray) -> np.ndarray:
     except ImportError:
         return _brute_force_3nn(points)
     tree = cKDTree(points)
-    # the first neighbour of each point is itself, at distance 0
-    d, _ = tree.query(points, k=min(4, len(points)))
+    # the first neighbour of each point is itself, at distance 0; the query
+    # runs on every host core
+    d, _ = tree.query(points, k=min(4, len(points)), workers=-1)
     d2 = np.atleast_2d(d)[:, 1:] ** 2
     return d2.mean(axis=1).astype(np.float32)
 

@@ -5,11 +5,16 @@ Port of ``ops/rasterize.py``; gradients come from ``torch.autograd``.
 Backends:
 
 - ``"seq"``: 32x32 tiles, 128-wide chunks, blended by kernel K1 forward and
-  K2 backward on a CUDA device (their plain versions on the CPU). Other tile
-  or chunk shapes raise ValueError; they are never silently rerouted.
+  K2 backward on a CUDA device (their plain versions on the CPU). A seq
+  setting of any other tile or chunk shape takes the ``"pallas"`` route, as
+  in the JAX package: K1/K2's layout is fixed, K4/K5 take any shape.
+- ``"pallas"``: 16x16 tiles by default, any tile shape, blended by kernel K4
+  forward and K5 backward (``ops/blend_pallas.py``) on a CUDA device.
 - ``"xla"``: the plain scan oracle of ``ops/blend.py``, on any device,
   differentiated by autograd.
-- ``"pallas"``: the 16x16 lane-layout kernels (K4/K5), not ported yet.
+
+The route depends on the settings alone; ``blend_seq.launches`` and
+``blend_pallas.launches`` show which kernel ran.
 
 ``means2d_offset`` shifts the projected centres by offset * (W/2, H/2)
 pixels, the reference's screen-space densification convention: its
@@ -26,6 +31,7 @@ import torch
 
 from neuralgaussiansplatting_torch.ops import binning
 from neuralgaussiansplatting_torch.ops import blend as blend_plain
+from neuralgaussiansplatting_torch.ops import blend_pallas
 from neuralgaussiansplatting_torch.ops import blend_seq
 from neuralgaussiansplatting_torch.ops import preprocess as pp
 from neuralgaussiansplatting_torch.ops import projection as proj
@@ -40,7 +46,10 @@ class RasterizeSettings:
     capacity: int = 1 << 18        # instance expansion/sort domain
     max_per_tile: int = 1024       # per-tile blend cap
     chunk: int = 128               # binning alignment / blend chunk
-    backend: str = "seq"           # "seq" | "xla" ("pallas" not ported yet)
+    backend: str = "seq"           # "seq" (32x32, chunk 128: K1/K2; other
+                                   # shapes take the pallas route) |
+                                   # "pallas" (any tile shape: K4/K5) |
+                                   # "xla" (scan oracle)
     scale_modifier: float = 1.0
     fast_sort: bool = False        # packed [tile|depth] sort key
     tight_culling: bool = False    # opacity-adaptive per-axis rects
@@ -86,6 +95,20 @@ class RenderOutput(NamedTuple):
     culled: torch.Tensor         # () int32 instances removed by precise cull
 
 
+def blend_route(settings: RasterizeSettings) -> str:
+    """The blend ``rasterize`` runs for ``settings``: "seq" (K1/K2) for
+    32x32 tiles with chunk 128, "pallas" (K4/K5) for backend "pallas" and
+    every other seq shape, "xla" for the scan oracle. Raises ValueError for
+    an unknown backend."""
+    backend = settings.backend
+    if backend not in ("seq", "pallas", "xla"):
+        raise ValueError(f"unknown backend {backend!r}")
+    if backend == "seq" and (settings.block_x, settings.block_y,
+                             settings.chunk) != (32, 32, 128):
+        return "pallas"
+    return backend
+
+
 def mark_visible(means3d: torch.Tensor, cam: pp.CameraParams) -> torch.Tensor:
     """Frustum visibility: view-space z > 0.2."""
     p_view = proj.transform_points_4x3(means3d, cam.view)
@@ -111,19 +134,7 @@ def rasterize(
     ``opacities`` (N,) and ``scales`` (N, 3) are activated; ``shs`` is
     (N, K, 3) or flat (N, 3K); ``bg`` (3,).
     """
-    backend = settings.backend
-    if backend == "pallas":
-        raise NotImplementedError(
-            "backend='pallas' (16x16 kernels K4/K5) is not ported yet: "
-            "ROADMAP.md queue 2, K4/K5; use backend='seq' or 'xla'")
-    if backend not in ("seq", "xla"):
-        raise ValueError(f"unknown backend {backend!r}")
-    if backend == "seq" and (settings.block_x != 32 or settings.block_y != 32
-                             or settings.chunk != 128):
-        raise ValueError(
-            "backend='seq' takes 32x32 tiles and chunk 128, got "
-            f"{settings.block_x}x{settings.block_y} tiles, chunk "
-            f"{settings.chunk}; use make_settings('seq') or backend='xla'")
+    backend = blend_route(settings)
     tiles_x, tiles_y = settings.tiles_for(cam.width, cam.height)
 
     pre = pp.preprocess_gaussians(
@@ -156,6 +167,9 @@ def rasterize(
                   settings.max_per_tile, settings.chunk)
     if backend == "seq":
         res = blend_seq.blend_tiles_seq(
+            *blend_args, track_contrib=settings.track_contrib)
+    elif backend == "pallas":
+        res = blend_pallas.blend_tiles(
             *blend_args, track_contrib=settings.track_contrib)
     else:
         res = blend_plain.blend_tiles(*blend_args)

@@ -8,6 +8,8 @@ itself runs only on a GPU (tests/test_torch_cuda.py); the backward (K2)
 is held against JAX in tests/test_torch_blend_bwd.py.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -91,18 +93,31 @@ def test_padding_slots_read_the_zero_sentinel():
     assert (packed[:, inst.valid] != 0).any(dim=1).all()
 
 
-@pytest.mark.parametrize("kw, exc", [
-    (dict(backend="seq", block_x=16, block_y=16), ValueError),
-    (dict(backend="seq", chunk=64), ValueError),
-    (dict(backend="pallas"), NotImplementedError),
-])
-def test_unported_or_mismatched_backends_raise(kw, exc):
+@pytest.mark.parametrize("backend, kw", [
+    ("seq", dict(block_x=16, block_y=16)),
+    ("seq", dict(chunk=64)),
+    ("pallas", dict()),
+    ("tiled", dict()),
+], ids=["seq-16x16", "seq-chunk64", "pallas", "unknown"])
+def test_unported_or_mismatched_backends_raise(backend, kw):
+    """Only an unknown backend raises. A seq setting of another tile or
+    chunk shape takes the pallas route (K4/K5), and renders bit-equal to
+    the explicit pallas setting of the same shape; backend="pallas"
+    renders."""
     cam = port_camera(make_camera(W=32, H=32))
-    arrays = map(to_torch, random_gaussians(n=20, deg=0, seed=1))
-    backend = kw.pop("backend")
-    with pytest.raises(exc):
-        trast.rasterize(*arrays, 0, cam, torch.zeros(3),
-                        trast.make_settings(backend, **kw))
+    arrays = list(map(to_torch, random_gaussians(n=20, deg=0, seed=1)))
+    settings = trast.make_settings(backend, **kw)
+    if backend == "tiled":
+        with pytest.raises(ValueError):
+            trast.rasterize(*arrays, 0, cam, torch.zeros(3), settings)
+        return
+    assert trast.blend_route(settings) == "pallas"
+    got = trast.rasterize(*arrays, 0, cam, torch.zeros(3), settings)
+    want = trast.rasterize(*arrays, 0, cam, torch.zeros(3),
+                           dataclasses.replace(settings, backend="pallas"))
+    assert int(got.num_rendered) > 0 and got.color.abs().sum() > 0
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
 
 
 def test_seq_blend_refuses_tensors_that_need_grad():

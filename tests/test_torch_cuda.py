@@ -35,6 +35,9 @@ torch.set_num_threads(2)
 SETTINGS = rast.make_settings("seq", capacity=1 << 18, max_per_tile=4096,
                               fast_sort=True, tight_culling=True,
                               precise_cull=True)
+PALLAS = rast.make_settings("pallas", capacity=1 << 18, max_per_tile=4096,
+                            fast_sort=True, tight_culling=True,
+                            precise_cull=True)
 
 
 def _need_gpu():
@@ -46,29 +49,32 @@ def test_build_targets_hopper_and_keys_on_source():
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert "--fmad=false" in _build.NVCC_FLAGS
     libs = set()
-    for name in ("blend_seq_fwd", "blend_seq_bwd", "zbuffer_fwd"):
+    names = ("blend_seq_fwd", "blend_seq_bwd", "zbuffer_fwd",
+             "blend_pallas_fwd", "blend_pallas_bwd")
+    for name in names:
         src, lib = _build._target(name)
         assert os.path.exists(src)
         assert os.path.dirname(lib) == _build.BUILD_DIR
         assert lib == _build._target(name)[1]
         libs.add(lib)
-    assert len(libs) == 3
+    assert len(libs) == len(names)
 
 
-def _bench_like_inputs(n, w, h, device="cuda"):
+def _bench_like_inputs(n, w, h, device="cuda", block=32, chunk=128):
     """Preprocess -> bin -> pack of the demo cloud, as ``rasterize`` runs
-    them: K1's and K2's inputs."""
+    them: K1's and K2's inputs at 32x32 tiles with chunk 128, K4's and
+    K5's at any ``block`` and ``chunk``."""
     params, state, cam = demo.demo_scene(n=n, w=w, h=h, sh_degree=3,
                                          device=device)
-    tiles_x, tiles_y = SETTINGS.tiles_for(cam.width, cam.height)
+    tiles_x, tiles_y = (w + block - 1) // block, (h + block - 1) // block
     pre = pp.preprocess_gaussians(
         params.xyz, gm.get_scaling(params), gm.get_rotation(params),
         gm.get_opacity(params, state.alive), gm.get_features(params), 3,
-        cam, 32, 32, tight=True)
+        cam, block, block, tight=True)
     inst = binning.bin_gaussians(pre, tiles_x, tiles_y, SETTINGS.capacity,
-                                 SETTINGS.max_per_tile, 128, pack_keys=True,
-                                 precise_cull=True, block_x=32, block_y=32,
-                                 width=w, height=h)
+                                 SETTINGS.max_per_tile, chunk, pack_keys=True,
+                                 precise_cull=True, block_x=block,
+                                 block_y=block, width=w, height=h)
     packed = blend_pallas.pack_gather(blend_pallas.pack_instance_attrs_t(
         pre.means2d, pre.conic, pre.opacity, pre.rgb), inst.gid)
     return packed, inst, tiles_x
@@ -174,10 +180,50 @@ def test_k2_matches_plain_version_on_gpu():
 
 
 @pytest.mark.cuda
-def test_render_gradients_on_gpu_match_cpu():
-    """autograd through ``render`` on the card (K1, K2) vs the same on the
-    CPU (their plain versions) at 96x80, at the JAX gate."""
+@pytest.mark.parametrize("block, chunk", [(16, 128), (32, 64)])
+def test_k4_k5_match_plain_versions_on_gpu(block, chunk):
+    """K4 and K5 vs their plain versions on the same card and inputs
+    (256x256, 20k Gaussians): K4 at K1's gate (atol 5e-5, n_contrib equal
+    on >= 99.9 %), K5 at the JAX gate and within 1e-5 of each row's scale.
+    Two K5 launches agree bit for bit."""
     _need_gpu()
+    packed, inst, tiles_x = _bench_like_inputs(20_000, 256, 256, block=block,
+                                               chunk=chunk)
+    args = (packed, inst.tile_start, inst.tile_count, tiles_x)
+    fwd, bwd = blend_pallas.launches, blend_pallas.bwd_launches
+    raw = blend_pallas.blend_pallas_fwd(*args, block, block)
+    torch.cuda.synchronize()
+    want = blend_pallas.blend_tiles_pallas_reference(*args, block, block)
+    assert (raw[:, :4] - want[:, :4]).abs().max().item() <= 5e-5
+    assert (raw[:, 4] == want[:, 4]).float().mean().item() >= 0.999
+    off = blend_pallas.blend_pallas_fwd(*args, block, block,
+                                        track_contrib=False)
+    assert torch.equal(off[:, :4], raw[:, :4]) and not off[:, 4].any()
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    cot = torch.randn(raw.shape, generator=gen, device="cuda")
+    bwd_args = (packed, inst.tile_start, inst.tile_count, raw, cot, tiles_x,
+                block, block)
+    got = blend_pallas.blend_pallas_bwd(*bwd_args)
+    again = blend_pallas.blend_pallas_bwd(*bwd_args)
+    torch.cuda.synchronize()
+    assert blend_pallas.launches == fwd + 2
+    assert blend_pallas.bwd_launches == bwd + 2
+    assert torch.equal(got, again)
+    want = blend_pallas.blend_tiles_pallas_bwd_reference(*bwd_args)
+    worst = _assert_jax_gate(got, want, same_card_rel=1e-5)
+    print(f"K5 vs plain at {block}x{block}: max error / row scale "
+          f"{worst:.3e}")
+    assert not got[:, ~inst.valid].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["seq", "pallas"])
+def test_render_gradients_on_gpu_match_cpu(backend):
+    """autograd through ``render`` on the card (K1 and K2, or K4 and K5) vs
+    the same on the CPU (their plain versions) at 96x80, at the JAX gate."""
+    _need_gpu()
+    settings = SETTINGS if backend == "seq" else PALLAS
     params, state, _ = demo.demo_scene(n=3000, w=96, h=80, sh_degree=3,
                                        device="cpu")
     gen = torch.Generator().manual_seed(2)
@@ -192,7 +238,7 @@ def test_render_gradients_on_gpu_match_cpu():
                                      for a in params))
         out = render(demo.demo_camera(96, 80, 0.4, device=dev), leaves,
                      state.alive.to(dev), 3,
-                     torch.tensor([0.2, 0.1, 0.3], device=dev), SETTINGS)
+                     torch.tensor([0.2, 0.1, 0.3], device=dev), settings)
         ((out["render"] - target.to(dev)) ** 2).sum().backward()
         grads[dev] = [a.grad for a in (leaves.xyz, leaves.scaling,
                                        leaves.rotation, leaves.opacity,
@@ -204,10 +250,12 @@ def test_render_gradients_on_gpu_match_cpu():
 
 
 @pytest.mark.cuda
-def test_train_step_repeats_bit_for_bit_on_gpu():
+@pytest.mark.parametrize("backend", ["seq", "pallas"])
+def test_train_step_repeats_bit_for_bit_on_gpu(backend):
     """Two ``train_step``s from one state give the same bits: nothing on
     the gradient path sums in a run-dependent order."""
     _need_gpu()
+    settings = SETTINGS if backend == "seq" else PALLAS
     params, state, cam = demo.demo_scene(n=20_000, w=256, h=256,
                                          sh_degree=3)
     with torch.no_grad():
@@ -218,9 +266,11 @@ def test_train_step_repeats_bit_for_bit_on_gpu():
         params.opacity.shape, generator=gen, device="cuda"))
     tx = optim.make_optimizer(optim.OptimizationParams(), 1.0)
     ts = loop.TrainState(params, state, tx.init(params), 0)
+    launches = blend_pallas.launches
     outs = [loop.train_step(ts, cam, gt, torch.zeros(3, device="cuda"),
-                            tx=tx, sh_degree=3, settings=SETTINGS,
+                            tx=tx, sh_degree=3, settings=settings,
                             lambda_dssim=0.2) for _ in range(2)]
+    assert blend_pallas.launches - launches == 2 * (backend == "pallas")
     (a, ma), (b, mb) = outs
     assert torch.equal(ma["loss"], mb["loss"])
     for x, y in zip(a.params + a.gstate, b.params + b.gstate):
