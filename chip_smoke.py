@@ -4,9 +4,9 @@
 
 Builds every CUDA kernel of the port from csrc/ (K1, the 32x32 tile blend;
 K2, its backward; K3, the neural path's z-buffer; K4, the blend at any tile
-shape, 16x16 on the pallas path; K5, its backward), holds each against its
-plain PyTorch version at the shapes of its workload, then drives the paths
-as a user would.
+shape, 16x16 on the pallas path; K5, its backward; K6, the run-length
+decode; K7, the idiom probes), holds each against its plain PyTorch version
+at the shapes of its workload, then drives the paths as a user would.
 
 Classic path (800x800, 100k Gaussians, SH degree 3, the bench rasterizer
 settings): a demo cloud saved to PLY, loaded back and rendered from four
@@ -24,6 +24,12 @@ Neural path (800x800, 100k Gaussians, SH degree 1, seeded 64-d features,
 full-width decoders): the tiled z-buffer against the per-pixel sort oracle;
 a 64x64 card-vs-CPU reference; ``render1/2/3`` from four cameras; 10 steps
 of ``train.neural_loop.NeuralTrainer(sw=2)``.
+
+Tools: K6 against its plain version and ``binning._expand_runs`` at the
+decode tool's two workloads (100k runs over 655,360 slots; 5M over
+8,388,608) and on an edge case, K7's ten probes against theirs; then the
+port's ``tools.exp_decode_proto`` and ``tools.exp_mosaic_probe`` mains and
+every ``tools.chain_bench`` configuration once.
 
 Each path checks that it went through its kernels. It prints one JSON line
 of per-kernel numbers, the card's name and power limit, and as its last
@@ -56,11 +62,15 @@ from neuralgaussiansplatting_torch.ops import _build
 from neuralgaussiansplatting_torch.ops import binning
 from neuralgaussiansplatting_torch.ops import blend_pallas
 from neuralgaussiansplatting_torch.ops import blend_seq
+from neuralgaussiansplatting_torch.ops import decode_runs
 from neuralgaussiansplatting_torch.ops import idxmap as idxmap_ops
 from neuralgaussiansplatting_torch.ops import preprocess as pp
 from neuralgaussiansplatting_torch.ops import blend as blend_plain
 from neuralgaussiansplatting_torch.ops import rasterize as rast
 from neuralgaussiansplatting_torch.ops import zbuffer_pallas
+from neuralgaussiansplatting_torch.tools import chain_bench
+from neuralgaussiansplatting_torch.tools import exp_decode_proto
+from neuralgaussiansplatting_torch.tools import exp_mosaic_probe
 from neuralgaussiansplatting_torch.train import loop
 from neuralgaussiansplatting_torch.train import neural_loop
 from neuralgaussiansplatting_torch.train import optim
@@ -155,6 +165,27 @@ GARDEN_PROBE = rast.make_settings(
 # 16x16 and 32x32 tilings differ by design in the 3..3.33-sigma band of each
 # splat's rect (tests/test_blend_seq.py:58-75): max and mean |d| limits
 BAND_GATE = (0.05, 1e-3)
+# K6 at the decode tool's workloads (tools/exp_decode_proto.py:160-162), f =
+# 6 columns. Its bound counts the bytes the function must move: each run's
+# start and f diffs read once (runs that start inside the domain), f int32
+# words written per slot; its operations, one integer add per run and
+# column and one per slot and column, at the FP32 rate (no INT32 rate is
+# listed), are ~100x below that.
+K6_WORKLOADS = exp_decode_proto.WORKLOADS
+K6_F = exp_decode_proto.F
+# exp_decode_proto.main launches K6 once per workload to check it and
+# (reps + 1) * (iters + 1) times in its chain
+K6_TOOL_LAUNCHES = len(K6_WORKLOADS) * (
+    1 + (exp_decode_proto.REPS + 1) * (exp_decode_proto.ITERS + 1))
+# K7: each probe reads x (16, 128) float32 once and writes its output once;
+# its few float adds are nothing beside that.
+K7_PROBES = exp_mosaic_probe.PROBES
+# the blend and z-buffer kernels each configuration of tools.chain_bench
+# launches once per step
+CHAIN_KERNELS = {"classic_fb": ("K4", "K5"), "classic_fb_seq": ("K1", "K2"),
+                 "classic_fwd_seq": ("K1",), "classic_fwd1080_seq": ("K1",),
+                 "classic_fwd1080": ("K4",), "neural_fb": ("K3",),
+                 "neural_fb_bf16": ("K3",)}
 
 
 def fail(msg: str):
@@ -178,8 +209,9 @@ def card_line() -> str:
 
 
 def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
-    """Mean device time of ``fn`` in ms, from CUDA events around ``reps``
-    back-to-back calls."""
+    """Mean time of one of ``reps`` back-to-back ``fn`` calls in ms, from
+    CUDA events around them: the device's time plus the idle time that the
+    host's dispatch leaves between calls."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -191,6 +223,27 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int, warmup: int = 2) -> float:
+    """Device time of one ``fn`` call in ms: the time of the CUDA kernels
+    that torch.profiler records over ``reps`` calls, over ``reps``. Unlike
+    ``cuda_ms`` it leaves out the device's idle time between launches, which
+    is the host's dispatch of each call where a call's kernels are
+    shorter."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA)
+    check(total > 0, "the profiler recorded no device time")
+    return total / 1e3 / reps
 
 
 def k1_inputs(params, state, cam, mark=lambda stage: None,
@@ -227,6 +280,8 @@ def launch_counts() -> dict:
 def reset_launch_counts():
     blend_seq.launches = blend_seq.bwd_launches = 0
     blend_pallas.launches = blend_pallas.bwd_launches = 0
+    zbuffer_pallas.launches = 0
+    decode_runs.launches = exp_mosaic_probe.launches = 0
 
 
 def sized_settings(probe, params, alive, cam):
@@ -250,7 +305,8 @@ def sized_settings(probe, params, alive, cam):
 def phase_build():
     t0 = time.perf_counter()
     logs = _build.build(["blend_seq_fwd", "blend_seq_bwd", "zbuffer_fwd",
-                         "blend_pallas_fwd", "blend_pallas_bwd"])
+                         "blend_pallas_fwd", "blend_pallas_bwd",
+                         "decode_runs", "mosaic_probe"])
     print(f"build: {time.perf_counter() - t0:.1f} s "
           f"({', '.join(logs) or 'cached'})")
     for name, log in logs.items():
@@ -259,23 +315,25 @@ def phase_build():
                 print(f"  {name} ptxas: {line.strip()}")
 
 
-def kernel_row(name, source, replaces, err, ms, plain_ms, t_bytes, t_ops):
-    """A kernel's entry of the kernels line (``launches`` is filled in by
-    the main path's run)."""
+def kernel_row(name, source, replaces, err, ms, dispatch_ms, plain_ms,
+               t_bytes, t_ops, library_ms=None):
+    """A kernel's entry of the kernels line; ``replaces`` is the TPU
+    kernel's path:line from the repo root, ``ms`` device time per launch
+    (``device_ms``), ``dispatch_ms`` per back-to-back launch (``cuda_ms``)
+    (``launches`` is filled in by the main path's run)."""
     return {"name": name, "route": "cuda",
             "source": f"neuralgaussiansplatting_torch/csrc/{source}",
-            "replaces": f"neuralgaussiansplatting_tpu/ops/{replaces}",
-            "launches": None, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+            "replaces": replaces, "launches": None, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": None}
+            "library_ms": library_ms, "dispatch_ms": dispatch_ms}
 
 
 def fwd_parity(label, kernel, plain, args, pix, visit_ops, blend_ops):
     """A blend forward kernel (K1, K4) vs its plain version on the card:
     ``args`` are both's arguments, the first three (packed, tile_start,
-    tile_count). Returns (max |d| of color and T, ms, plain ms, bound by
-    bytes, bound by operations)."""
+    tile_count). Returns (max |d| of color and T, device ms, dispatch ms,
+    plain ms, bound by bytes, bound by operations)."""
     packed, _, tile_count = args[:3]
     got = kernel(*args)
     torch.cuda.synchronize()
@@ -294,18 +352,20 @@ def fwd_parity(label, kernel, plain, args, pix, visit_ops, blend_ops):
           f"{err}")
     check(agree >= CONTRIB_AGREE, f"n_contrib agreement {agree}")
 
-    ms = cuda_ms(lambda: kernel(*args), reps=50, warmup=3)
+    ms = device_ms(lambda: kernel(*args), reps=50)
+    dispatch_ms = cuda_ms(lambda: kernel(*args), reps=50)
     plain_ms = cuda_ms(lambda: plain(*args), reps=2)
     ops = pairs * visit_ops + blended * blend_ops
     nbytes = (blend_pallas.PROWS * n_inst * 4 + 2 * num_tiles * 4
               + num_tiles * 5 * pix * 4)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / FP32_OPS_PER_S * 1e3
-    print(f"{label} timing: {ms:.4f} ms/launch (50 launches), plain version "
-          f"{plain_ms:.1f} ms; visited pairs {pairs}, blended pairs "
-          f"{blended}, {ops:.4g} FP32 ops "
+    print(f"{label} timing: {ms:.4f} ms/launch (device time, 50 launches), "
+          f"{dispatch_ms:.4f} ms/launch (CUDA events, 50 back to back), "
+          f"plain version {plain_ms:.1f} ms; visited pairs {pairs}, blended "
+          f"pairs {blended}, {ops:.4g} FP32 ops "
           f"-> {t_ops:.4f} ms; {nbytes} bytes -> {t_bytes:.4f} ms")
-    return err, ms, plain_ms, t_bytes, t_ops
+    return err, ms, dispatch_ms, plain_ms, t_bytes, t_ops
 
 
 def phase_k1_parity(params, state):
@@ -313,7 +373,8 @@ def phase_k1_parity(params, state):
     packed, inst, tiles_x = k1_inputs(params, state, demo.demo_camera(W, H))
     args = (packed, inst.tile_start, inst.tile_count, tiles_x)
     return kernel_row(
-        "blend_seq_fwd", "blend_seq_fwd.cu", "blend_seq.py:91",
+        "blend_seq_fwd", "blend_seq_fwd.cu",
+        "neuralgaussiansplatting_tpu/ops/blend_seq.py:91",
         *fwd_parity("k1", blend_seq.blend_seq_fwd,
                     blend_seq.blend_tiles_seq_reference, args,
                     blend_seq.PIX, K1_VISIT_OPS_PER_PAIR,
@@ -328,7 +389,8 @@ def phase_k4_parity(params, state, settings):
     tile = (settings.block_x, settings.block_y)
     args = (packed, inst.tile_start, inst.tile_count, tiles_x, *tile)
     return kernel_row(
-        "blend_pallas_fwd", "blend_pallas_fwd.cu", "blend_pallas.py:260",
+        "blend_pallas_fwd", "blend_pallas_fwd.cu",
+        "neuralgaussiansplatting_tpu/ops/blend_pallas.py:260",
         *fwd_parity("k4", blend_pallas.blend_pallas_fwd,
                     blend_pallas.blend_tiles_pallas_reference, args,
                     tile[0] * tile[1], K4_VISIT_OPS_PER_PAIR,
@@ -373,8 +435,8 @@ def bwd_parity(label, fwd, bwd, plain, packed, inst, rest, tile, walk_ops,
     """A blend backward kernel (K2, K5) vs its plain version on the card,
     with the cotangent of the photometric loss against a seeded target:
     ``fwd``/``bwd``/``plain`` take (packed, tile_start, tile_count[, raw,
-    cot], *rest); ``tile`` is (block_x, block_y). Returns (max |d|, ms,
-    plain ms, bound by bytes, bound by operations)."""
+    cot], *rest); ``tile`` is (block_x, block_y). Returns (max |d|, device
+    ms, dispatch ms, plain ms, bound by bytes, bound by operations)."""
     args = (packed, inst.tile_start, inst.tile_count)
     raw = fwd(*args, *rest)
     gen = torch.Generator(device="cuda").manual_seed(7)
@@ -409,7 +471,8 @@ def bwd_parity(label, fwd, bwd, plain, packed, inst, rest, tile, walk_ops,
     print(f"{label} parity: share of each row's nonzero slots below the JAX "
           "atol: " + ", ".join(f"{q:.4f}" for q in quiet))
 
-    ms = cuda_ms(lambda: bwd(*bwd_args), reps=50, warmup=3)
+    ms = device_ms(lambda: bwd(*bwd_args), reps=50)
+    dispatch_ms = cuda_ms(lambda: bwd(*bwd_args), reps=50)
     plain_ms = cuda_ms(lambda: plain(*bwd_args), reps=1)
     ops = walked * walk_ops + blended * blend_ops
     num_tiles = inst.tile_count.shape[0]
@@ -418,18 +481,20 @@ def bwd_parity(label, fwd, bwd, plain, packed, inst, rest, tile, walk_ops,
               + blend_pallas.PROWS * packed.shape[1] * 4)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / FP32_OPS_PER_S * 1e3
-    print(f"{label} timing: {ms:.4f} ms/launch (50 launches), plain version "
-          f"{plain_ms:.1f} ms; walked pairs {walked}, blended pairs "
-          f"{blended}, {ops:.4g} FP32 ops -> {t_ops:.4f} ms; {nbytes} bytes "
-          f"-> {t_bytes:.4f} ms")
-    return err, ms, plain_ms, t_bytes, t_ops
+    print(f"{label} timing: {ms:.4f} ms/launch (device time, 50 launches), "
+          f"{dispatch_ms:.4f} ms/launch (CUDA events, 50 back to back), "
+          f"plain version {plain_ms:.1f} ms; walked pairs {walked}, blended "
+          f"pairs {blended}, {ops:.4g} FP32 ops -> {t_ops:.4f} ms; {nbytes} "
+          f"bytes -> {t_bytes:.4f} ms")
+    return err, ms, dispatch_ms, plain_ms, t_bytes, t_ops
 
 
 def phase_k2_parity(params, state):
     """K2 vs its plain version on the card, at the bench shapes."""
     packed, inst, tiles_x = k1_inputs(params, state, demo.demo_camera(W, H))
     return kernel_row(
-        "blend_seq_bwd", "blend_seq_bwd.cu", "blend_seq.py:202",
+        "blend_seq_bwd", "blend_seq_bwd.cu",
+        "neuralgaussiansplatting_tpu/ops/blend_seq.py:202",
         *bwd_parity("k2", blend_seq.blend_seq_fwd, blend_seq.blend_seq_bwd,
                     blend_seq.blend_tiles_seq_bwd_reference, packed, inst,
                     (tiles_x,), (blend_seq.BX, blend_seq.BY),
@@ -443,7 +508,8 @@ def phase_k5_parity(params, state, settings):
                                       settings=settings)
     tile = (settings.block_x, settings.block_y)
     return kernel_row(
-        "blend_pallas_bwd", "blend_pallas_bwd.cu", "blend_pallas.py:353",
+        "blend_pallas_bwd", "blend_pallas_bwd.cu",
+        "neuralgaussiansplatting_tpu/ops/blend_pallas.py:353",
         *bwd_parity("k5", blend_pallas.blend_pallas_fwd,
                     blend_pallas.blend_pallas_bwd,
                     blend_pallas.blend_tiles_pallas_bwd_reference, packed,
@@ -1118,7 +1184,8 @@ def phase_k3_parity(params, state):
     print("k3 parity: tiled idxmap equal to the per-pixel sort oracle at "
           "every pixel")
 
-    ms = cuda_ms(lambda: zbuffer_pallas.zbuf_tiles(*args), reps=50, warmup=3)
+    ms = device_ms(lambda: zbuffer_pallas.zbuf_tiles(*args), reps=50)
+    dispatch_ms = cuda_ms(lambda: zbuffer_pallas.zbuf_tiles(*args), reps=50)
     plain_ms = cuda_ms(
         lambda: zbuffer_pallas.zbuf_tiles_reference(*args), reps=2)
     pairs = k3_covered_pairs(rects, tile_start, tile_count, tiles_x)
@@ -1129,14 +1196,16 @@ def phase_k3_parity(params, state):
               + 2 * num_tiles * zbuffer_pallas.PIX * 4)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / FP32_OPS_PER_S * 1e3
-    print(f"k3 timing: {ms:.4f} ms/launch (50 launches), plain version "
-          f"{plain_ms:.1f} ms; {pairs} covered (instance, pixel) pairs (the "
+    print(f"k3 timing: {ms:.4f} ms/launch (device time, 50 launches), "
+          f"{dispatch_ms:.4f} ms/launch (CUDA events, 50 back to back), "
+          f"plain version {plain_ms:.1f} ms; {pairs} covered (instance, pixel) pairs (the "
           f"oracle's pixel instances {int(num_inst)}; the kernel tests "
           f"{n_inst * zbuffer_pallas.PIX}) x {K3_OPS_PER_PAIR} ops = "
           f"{ops:.4g} ops at the FP32 rate "
           f"-> {t_ops:.4f} ms; {nbytes} bytes -> {t_bytes:.4f} ms")
-    return kernel_row("zbuffer_fwd", "zbuffer_fwd.cu", "zbuffer_pallas.py:47",
-                      err, ms, plain_ms, t_bytes, t_ops)
+    return kernel_row("zbuffer_fwd", "zbuffer_fwd.cu",
+                      "neuralgaussiansplatting_tpu/ops/zbuffer_pallas.py:47",
+                      err, ms, dispatch_ms, plain_ms, t_bytes, t_ops)
 
 
 def phase_small_neural_reference():
@@ -1364,6 +1433,174 @@ def phase_neural_train(params, state):
     return launches
 
 
+def k6_bound(starts, domain):
+    """(bound by bytes, bound by operations) in ms of decoding f = K6_F
+    columns of ``starts``' runs over ``domain`` slots."""
+    n_in = int((starts < domain).sum())
+    nbytes = 4 * n_in * (1 + K6_F) + 4 * K6_F * domain
+    ops = (n_in + domain) * K6_F
+    return nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+
+
+def phase_k6():
+    """K6 vs its plain version and ``binning._expand_runs`` at the decode
+    tool's two workloads (bit for bit, and two launches bit-equal) and on
+    the edge case; per launch times of K6, its plain version and
+    ``repeat_interleave`` (CUDA events), and the bytes bound. Returns the
+    kernels-line row: the garden workload's numbers, both workloads'
+    under "workloads"."""
+    edge_domain = 1 << 15
+    starts, fields = exp_decode_proto.edge_case(edge_domain, K6_F, n=5000)
+    args = (starts, decode_runs.diffs_from_fields(fields), edge_domain, K6_F)
+    got = decode_runs.decode_runs(*args)
+    torch.cuda.synchronize()
+    check(torch.equal(got, decode_runs.decode_runs_reference(*args))
+          and torch.equal(got, binning._expand_runs(fields, starts,
+                                                    edge_domain)),
+          "K6 differs from its plain version on the edge case")
+    print(f"k6 edge case: {starts.shape[0]} runs over {edge_domain} slots "
+          f"(first start {int(starts[0])}, "
+          f"{int((starts[1:] == starts[:-1]).sum())} repeated starts, "
+          f"{int((starts >= edge_domain).sum())} at or past the domain, "
+          "fields over the whole int32 range): equal to its plain version "
+          "and _expand_runs")
+
+    per = []
+    for name, (n, domain) in K6_WORKLOADS.items():
+        starts, fields = exp_decode_proto.make_case(n, domain, K6_F)
+        args = (starts, decode_runs.diffs_from_fields(fields), domain, K6_F)
+        got = decode_runs.decode_runs(*args)
+        again = decode_runs.decode_runs(*args)
+        torch.cuda.synchronize()
+        plain = decode_runs.decode_runs_reference(*args)
+        expand = binning._expand_runs(fields, starts, domain)
+        err = (got.long() - plain.long()).abs().max().item()
+        check(torch.equal(got, again), f"two K6 launches differ ({name})")
+        check(torch.equal(got, plain),
+              f"K6 differs from its plain version ({name}): max|d| {err}")
+        check(torch.equal(got, expand), f"K6 differs from _expand_runs "
+              f"({name})")
+        rows, lengths = exp_decode_proto.repeat_inputs(starts, fields, domain)
+
+        def library():
+            return torch.repeat_interleave(rows, lengths, dim=0,
+                                           output_size=domain)
+
+        check(torch.equal(library(), expand),
+              f"repeat_interleave differs from _expand_runs ({name})")
+
+        def kernel():
+            return decode_runs.decode_runs(*args)
+
+        ms = device_ms(kernel, reps=50)
+        plain_ms = cuda_ms(lambda: decode_runs.decode_runs_reference(*args),
+                           reps=5)
+        library_ms = device_ms(library, reps=50)
+        dispatch_ms = cuda_ms(kernel, reps=50, warmup=3)
+        library_dispatch_ms = cuda_ms(library, reps=50, warmup=3)
+        t_bytes, t_ops = k6_bound(starts, domain)
+        print(f"k6 {name}: {n} runs ({int((starts[1:] == starts[:-1]).sum())}"
+              f" zero-length) over {domain} slots, f {K6_F}: bit-equal to its "
+              "plain version and _expand_runs, two launches bit-equal; "
+              f"device time per call (profiler, 50 calls) K6 {ms:.4f} ms, "
+              f"repeat_interleave {library_ms:.4f} ms; back-to-back calls "
+              f"(CUDA events) K6 {dispatch_ms:.4f} ms, repeat_interleave "
+              f"{library_dispatch_ms:.4f} ms, plain version {plain_ms:.4f} "
+              f"ms; bound {t_bytes:.4f} ms by bytes ({t_ops:.4f} ms by "
+              "operations)")
+        per.append({"workload": name, "runs": n, "slots": domain,
+                    "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                    "dispatch_ms": dispatch_ms,
+                    "library_dispatch_ms": library_dispatch_ms,
+                    "bound_ms": max(t_bytes, t_ops), "max_abs_err": err})
+    row = kernel_row("decode_runs", "decode_runs.cu", decode_runs.REPLACES,
+                     err, ms, dispatch_ms, plain_ms, t_bytes, t_ops,
+                     library_ms)
+    row["library_dispatch_ms"] = library_dispatch_ms
+    row["workloads"] = per
+    return row
+
+
+def phase_k7():
+    """Each K7 probe vs its plain version, exactly, on the tool's arange
+    input and a seeded input with |x| < 2^20 and a negative x[0, 0]; per
+    launch times (CUDA events). Returns the kernels-line row: the slowest
+    probe's numbers, every probe's under "probes"."""
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    rand = (torch.rand((16, 128), generator=gen, device="cuda") * 2 - 1) \
+        * 2 ** 20
+    rand[0, 0] = -300.75
+    arange = torch.arange(16 * 128, dtype=torch.float32,
+                          device="cuda").reshape(16, 128)
+    probes, worst = [], 0.0
+    for name, (kernel, plain) in K7_PROBES.items():
+        for label, x in (("arange", arange), ("random", rand)):
+            got = kernel(x)
+            torch.cuda.synchronize()
+            want = plain(x)
+            err = (got - want).abs().max().item()
+            check(torch.equal(got, want), f"K7 probe {name} differs from its "
+                  f"plain version on the {label} input: max|d| {err}")
+            worst = max(worst, err)
+        ms = device_ms(lambda: kernel(arange), reps=50)
+        plain_ms = cuda_ms(lambda: plain(arange), reps=5)
+        library_ms = (device_ms(lambda: arange.t().contiguous(), reps=50)
+                      if name == "p6_transpose" else None)
+        dispatch_ms = cuda_ms(lambda: kernel(arange), reps=200, warmup=5)
+        t_bytes = (arange.numel() + got.numel()) * 4 / HBM_BYTES_PER_S * 1e3
+        probes.append({"name": name,
+                       "replaces": exp_mosaic_probe.REPLACES[name],
+                       "ms": ms, "plain_ms": plain_ms, "bound_ms": t_bytes,
+                       "library_ms": library_ms, "dispatch_ms": dispatch_ms})
+    print("k7: 10 probes equal to their plain versions on arange and a "
+          "seeded input; device time per launch (profiler, 50 launches) / "
+          "back-to-back launches (CUDA events, 200) in ms: " + ", ".join(
+              f"{p['name']} {p['ms']:.4f} / {p['dispatch_ms']:.4f}"
+              for p in probes))
+    slowest = max(probes, key=lambda p: p["ms"])
+    row = kernel_row("mosaic_probe", "mosaic_probe.cu", slowest["replaces"],
+                     worst, slowest["ms"], slowest["dispatch_ms"],
+                     slowest["plain_ms"], slowest["bound_ms"], 0.0,
+                     slowest["library_ms"])
+    row["probes"] = probes
+    return row
+
+
+def phase_tools():
+    """The port's three tools as a user runs them: the decode tool at both
+    workloads (K6), the probe tool (K7, ten launches), every chain_bench
+    configuration once (each through its blend or z-buffer kernel once per
+    chained step). Returns K6's and K7's launches in their tools and the
+    decode tool's results (chained ms per call of K6, the plain expansion
+    and repeat_interleave, per workload)."""
+    reset_launch_counts()
+    decoded = exp_decode_proto.main([])
+    k6 = decode_runs.launches
+    check(k6 == K6_TOOL_LAUNCHES,
+          f"the decode tool launched K6 {k6} times, not {K6_TOOL_LAUNCHES}")
+    reset_launch_counts()
+    exp_mosaic_probe.main([])
+    k7 = exp_mosaic_probe.launches
+    check(k7 == len(K7_PROBES), f"the probe tool launched {k7} probes")
+    print(f"tools: the decode tool launched K6 {k6} times, the probe tool "
+          f"{k7} probes")
+
+    for which, kernels in CHAIN_KERNELS.items():
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        ms = chain_bench.run(which)
+        torch.cuda.synchronize()
+        counts = {**launch_counts(), "K3": zbuffer_pallas.launches}
+        steps = (chain_bench.REPS + 1) * (chain_bench.iters_for(which) + 1)
+        want = {k: steps if k in kernels else 0 for k in counts}
+        check(counts == want, f"chain_bench {which} launched {counts}, "
+              f"expected {want}")
+        check(math.isfinite(ms) and ms > 0, f"chain_bench {which}: {ms} ms")
+        print(f"chain_bench {which}: {steps} steps launched "
+              + ", ".join(f"{k} {v}" for k, v in counts.items() if v))
+    return k6, k7, decoded
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: the port's kernels run "
@@ -1396,6 +1633,17 @@ def main():
     phase_small_neural_reference()
     phase_neural_serve(nparams, nstate)
     rows["K3"]["launches"] = phase_neural_train(nparams, nstate)
+    del nparams, nstate
+
+    rows["K6"] = phase_k6()
+    rows["K7"] = phase_k7()
+    rows["K6"]["launches"], rows["K7"]["launches"], decoded = phase_tools()
+    # the decode tool's chained times beside the phase's per-launch ones
+    for entry, result in zip(rows["K6"]["workloads"], decoded):
+        check(entry["workload"] == result["name"], "decode tool workloads")
+        entry.update(chained_ms=result["k6_ms"],
+                     chained_plain_ms=result["plain_ms"],
+                     chained_library_ms=result["repeat_interleave_ms"])
 
     print(json.dumps({"kernels": [rows[k] for k in sorted(rows)]}))
     print(card)

@@ -44,6 +44,25 @@ class Instances(NamedTuple):
                                   # per-instance coverage test
 
 
+def _expand_runs(fields: torch.Tensor, starts: torch.Tensor,
+                 capacity: int) -> torch.Tensor:
+    """Expand per-run constant rows to per-slot rows.
+
+    ``fields`` (R, F) int32 holds one row per run, ``starts`` (R,) int32
+    the runs' first slots, non-decreasing and >= 0. Slot s of the (capacity,
+    F) int32 result holds the row of the last run r with starts[r] <= s, or
+    zeros before the first start; starts at or past ``capacity`` are
+    dropped and zero-length runs absorbed. The JAX package scatters the row
+    differences at the starts and takes a blocked cumsum (int32 wraparound
+    telescopes exactly); this is the same contract as an owner lookup and a
+    row gather.
+    """
+    slots = torch.arange(capacity, dtype=starts.dtype, device=starts.device)
+    owner = torch.searchsorted(starts, slots, right=True)   # = last owner + 1
+    rows = torch.cat([fields.new_zeros((1,) + fields.shape[1:]), fields])
+    return rows[owner]
+
+
 def bin_gaussians(pre: Preprocessed, tiles_x: int, tiles_y: int,
                   capacity: int, max_per_tile: int, align: int,
                   pack_keys: bool = False,

@@ -23,10 +23,13 @@ from neuralgaussiansplatting_torch.ops import _build
 from neuralgaussiansplatting_torch.ops import binning
 from neuralgaussiansplatting_torch.ops import blend_pallas
 from neuralgaussiansplatting_torch.ops import blend_seq
+from neuralgaussiansplatting_torch.ops import decode_runs as k6
 from neuralgaussiansplatting_torch.ops import idxmap as idxmap_ops
 from neuralgaussiansplatting_torch.ops import preprocess as pp
 from neuralgaussiansplatting_torch.ops import rasterize as rast
 from neuralgaussiansplatting_torch.ops import zbuffer_pallas
+from neuralgaussiansplatting_torch.tools import exp_decode_proto as decode_tool
+from neuralgaussiansplatting_torch.tools import exp_mosaic_probe as probes
 from neuralgaussiansplatting_torch.train import loop
 from neuralgaussiansplatting_torch.train import optim
 
@@ -50,7 +53,8 @@ def test_build_targets_hopper_and_keys_on_source():
     assert "--fmad=false" in _build.NVCC_FLAGS
     libs = set()
     names = ("blend_seq_fwd", "blend_seq_bwd", "zbuffer_fwd",
-             "blend_pallas_fwd", "blend_pallas_bwd")
+             "blend_pallas_fwd", "blend_pallas_bwd", "decode_runs",
+             "mosaic_probe")
     for name in names:
         src, lib = _build._target(name)
         assert os.path.exists(src)
@@ -358,3 +362,76 @@ def test_neural_paths_on_gpu_match_cpu():
             <= 1e-5 * want.abs().max())
     g = grads["cpu"][0]
     assert (grads["cuda"][0] - g).abs().max() <= 1e-5 * g.abs().max()
+
+
+def _k6_case(kind):
+    """(starts, diffs, domain, f, fields or None) of a K6 case on the card,
+    from a seeded generator."""
+    gen = torch.Generator().manual_seed(11)
+
+    def ints(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=gen, dtype=torch.int64)
+
+    if kind in ("make_case", "zero_length_runs"):
+        n = 20_000 if kind == "make_case" else 100_000   # Poisson(0.5) runs
+        starts, fields = decode_tool.make_case(n, 1 << 17, 6)
+        return starts, k6.diffs_from_fields(fields), 1 << 17, 6, fields
+    if kind == "edge":
+        # first start above 0, repeated starts on a block boundary, starts
+        # at and past the domain, fields over the whole int32 range
+        starts, fields = decode_tool.edge_case(3 * 4096, 6, n=3000)
+        return starts, k6.diffs_from_fields(fields), 3 * 4096, 6, fields
+    if kind == "crowded":   # 50k runs start in 64 slots: atomics on a row
+        starts = torch.sort(ints(0, 64, (50_000,)))[0].to(torch.int32)
+        diffs = ints(-2 ** 31, 2 ** 31, (50_000, 6)).to(torch.int32)
+        return starts.cuda(), diffs.cuda(), 8192, 6, None
+    if kind == "empty":
+        return (torch.zeros(0, dtype=torch.int32, device="cuda"),
+                torch.zeros((0, 6), dtype=torch.int32, device="cuda"), 4096,
+                6, None)
+    # "f13" and "f128": fewer slots per block; diffs wider than f
+    f = int(kind[1:])
+    starts = torch.sort(ints(0, 1 << 15, (5000,)))[0].to(torch.int32)
+    diffs = ints(-2 ** 31, 2 ** 31, (5000, f + 3)).to(torch.int32)
+    return starts.cuda(), diffs.cuda(), 1 << 15, f, None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["make_case", "zero_length_runs", "edge",
+                                  "crowded", "empty", "f13", "f128"])
+def test_k6_matches_plain_version_on_gpu(kind):
+    """K6 vs its plain version on the same card and inputs, bit for bit,
+    and bit-equal across two launches; vs ``_expand_runs`` of the fields
+    where the diffs are their row differences."""
+    _need_gpu()
+    starts, diffs, domain, f, fields = _k6_case(kind)
+    before = k6.launches
+    got = k6.decode_runs(starts, diffs, domain, f)
+    again = k6.decode_runs(starts, diffs, domain, f)
+    torch.cuda.synchronize()
+    assert k6.launches == before + 2
+    assert got.shape == (domain, f) and got.dtype == torch.int32
+    assert torch.equal(got, again)
+    assert torch.equal(got, k6.decode_runs_reference(starts, diffs, domain, f))
+    if fields is not None:
+        assert torch.equal(got, binning._expand_runs(fields, starts, domain))
+
+
+@pytest.mark.cuda
+def test_k7_probes_match_plain_versions_on_gpu():
+    """Each K7 probe vs its plain version on the same card, exactly, on the
+    tool's arange input and on a seeded input with |x| < 2^20 and a
+    negative x[0, 0]."""
+    _need_gpu()
+    gen = torch.Generator().manual_seed(5)
+    rand = (torch.rand((16, 128), generator=gen) * 2 - 1) * 2 ** 20
+    rand[0, 0] = -300.75
+    for x in (torch.arange(16 * 128, dtype=torch.float32).reshape(16, 128),
+              rand):
+        x = x.cuda()
+        for name, (kernel, plain) in probes.PROBES.items():
+            before = probes.launches
+            got = kernel(x)
+            torch.cuda.synchronize()
+            assert probes.launches == before + 1, name
+            assert torch.equal(got, plain(x)), name
