@@ -18,7 +18,9 @@ Pallas path (the same cloud, ``make_settings("pallas")``: 16x16 tiles,
 capacities from a probe render): four renders, a 16x16 "seq" setting routed
 to K4, 10 ``train_step``s; then the garden regime of ``tools/bench_garden.py
 --scatter`` (1920x1080, 5M Gaussians): forward and fwd+bwd times, finite
-gradients, the image against the 32x32 seq render of the same cloud.
+gradients, the image against the 32x32 seq render of the same cloud; and
+the seq path at those shapes: K1 and K2 against their plain versions, their
+device times and bounds, seq render and fwd+bwd times.
 
 Neural path (800x800, 100k Gaussians, SH degree 1, seeded 64-d features,
 full-width decoders): the tiled z-buffer against the per-pixel sort oracle;
@@ -66,6 +68,7 @@ from neuralgaussiansplatting_torch.ops import decode_runs
 from neuralgaussiansplatting_torch.ops import idxmap as idxmap_ops
 from neuralgaussiansplatting_torch.ops import preprocess as pp
 from neuralgaussiansplatting_torch.ops import blend as blend_plain
+from neuralgaussiansplatting_torch.ops.blend import ALPHA_MAX, ALPHA_MIN
 from neuralgaussiansplatting_torch.ops import rasterize as rast
 from neuralgaussiansplatting_torch.ops import zbuffer_pallas
 from neuralgaussiansplatting_torch.tools import chain_bench
@@ -75,6 +78,7 @@ from neuralgaussiansplatting_torch.train import loop
 from neuralgaussiansplatting_torch.train import neural_loop
 from neuralgaussiansplatting_torch.train import optim
 from neuralgaussiansplatting_torch.utils import losses
+from neuralgaussiansplatting_torch.utils.timing import cuda_ms, device_ms
 
 W = H = 800
 N = 100_000
@@ -88,16 +92,23 @@ CONTRIB_AGREE = 0.999  # n_contrib equal on at least this share of pixels
 # H100 SXM data sheet peaks (dense, no sparsity), at the 700 W limit
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
-# FP32 operations counted as the function needs them, expf as one; the
-# comparisons and selects are not counted. K1, per (instance, pixel) pair
-# visited while the pixel was not done: 2 sub (dx, dy), 6 mul + 1 add + 1 mul
-# + 1 sub (power), expf, 1 mul + 1 min (alpha).
-K1_VISIT_OPS_PER_PAIR = 14
+# FP32 operations counted as the function needs them, expf (logf, sqrtf) as
+# one; the comparisons and selects are not counted. K1 and K2 need, of the
+# (instance, pixel) pairs that a pixel must consider (K1: those it visits
+# while not done; K2: those before its own n_contrib), the power only where
+# the pixel lies inside the instance's box and alpha only where the power
+# lies in [cutoff, 0] (the kernels' own cutoff and box, which leave out only
+# pairs whose alpha is 0; ``seq_pair_counts`` counts them): the power, 2 sub
+# (dx, dy), 6 mul + 1 add + 1 mul + 1 sub.
+SEQ_POWER_OPS = 11
+# alpha: expf, 1 mul + 1 min.
+SEQ_ALPHA_OPS = 3
+# Per instance of a tile up to the last one that a pixel needs: the cutoff
+# (div, logf, abs, add, mul, sub) and the box (A*C, det 2, B^2 and 0.998 AC
+# 2, r^2 2, two half-widths of 5, 4 edges).
+SEQ_STAGE_OPS = 6 + 21
 # K1, per blended pair on top: 1 mul + 1 sub (T), 3 mul + 3 add (color).
 K1_BLEND_OPS_PER_PAIR = 8
-# K2, per pair walked up to the tile's deepest contributor while the pixel
-# was not done: the forward recompute as K1's visit, 14.
-K2_WALK_OPS_PER_PAIR = 14
 # K2, per blended pair on top: 3 mul + 2 add (cdot), 1 mul + 1 sub (T),
 # 1 mul + 1 add (prefix); 5 (dalpha: T*cdot, tot - prefix, 1 - a, div, sub),
 # 1 mul (dpow), 6 + 6 (d mean2d x, y: neg, 2 mul, sub, mul, add), 4 + 4 + 4
@@ -208,44 +219,6 @@ def card_line() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
-    """Mean time of one of ``reps`` back-to-back ``fn`` calls in ms, from
-    CUDA events around them: the device's time plus the idle time that the
-    host's dispatch leaves between calls."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def device_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Device time of one ``fn`` call in ms: the time of the CUDA kernels
-    that torch.profiler records over ``reps`` calls, over ``reps``. Unlike
-    ``cuda_ms`` it leaves out the device's idle time between launches, which
-    is the host's dispatch of each call where a call's kernels are
-    shorter."""
-    from torch.profiler import ProfilerActivity, profile
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA)
-    check(total > 0, "the profiler recorded no device time")
-    return total / 1e3 / reps
-
-
 def k1_inputs(params, state, cam, mark=lambda stage: None,
               settings=SETTINGS):
     """Preprocess -> bin -> pack as ``rasterize`` runs them for one view:
@@ -304,9 +277,9 @@ def sized_settings(probe, params, alive, cam):
 
 def phase_build():
     t0 = time.perf_counter()
-    logs = _build.build(["blend_seq_fwd", "blend_seq_bwd", "zbuffer_fwd",
-                         "blend_pallas_fwd", "blend_pallas_bwd",
-                         "decode_runs", "mosaic_probe"])
+    logs = _build.build(["blend_seq_fwd", "blend_seq_bwd", "blend_seq_stage",
+                         "zbuffer_fwd", "blend_pallas_fwd",
+                         "blend_pallas_bwd", "decode_runs", "mosaic_probe"])
     print(f"build: {time.perf_counter() - t0:.1f} s "
           f"({', '.join(logs) or 'cached'})")
     for name, log in logs.items():
@@ -329,15 +302,107 @@ def kernel_row(name, source, replaces, err, ms, dispatch_ms, plain_ms,
             "library_ms": library_ms, "dispatch_ms": dispatch_ms}
 
 
-def fwd_parity(label, kernel, plain, args, pix, visit_ops, blend_ops):
+def flat_ops(visit_ops, blend_ops):
+    """The operation count of a blend kernel that skips nothing (K4, K5):
+    ``visit_ops`` per pair visited (walked) while the pixel was not done,
+    ``blend_ops`` more per blended pair; a ``count`` for ``fwd_parity`` and
+    ``bwd_parity``."""
+    def count(args, raw, pairs, blended):
+        return (pairs * visit_ops + blended * blend_ops,
+                f"visited pairs {pairs}, blended pairs {blended}")
+    return count
+
+
+def seq_pair_counts(packed, tile_start, tile_count, tiles_x, raw):
+    """The pairs K1 and K2 need, from K1's output ``raw`` (n_contrib
+    tracked) and the kernels' own cutoffs and boxes
+    (``blend_seq.stage_cutoff_box``), in chunks of instance indices,
+    vectorised over (tiles x chunk x 1024 px). A pixel visits (K1) each
+    pair up to the one that makes it done, the first after its n_contrib
+    whose a is nonzero; K2 walks each pixel's pairs before its n_contrib.
+    Of those: ``*_box``, pixel inside the instance's box; ``*_live``, power
+    in [cutoff, 0]; ``*_staged``, instances of a tile up to the last one any
+    pixel needs; ``visited``, every pair K1 visits; ``blended``."""
+    dev = packed.device
+    stage = blend_seq.stage_cutoff_box(packed)
+    num_tiles = tile_count.numel()
+    px, py = blend_plain.tile_pixel_coords(
+        tiles_x, num_tiles // tiles_x, blend_seq.BX, blend_seq.BY, dev)
+    px, py = px[:, None], py[:, None]                    # (T, 1, PIX)
+    start, count = tile_start.long(), tile_count.long()
+    last = raw[:, 4].long()[:, None]                     # n_contrib
+    done = torch.zeros((num_tiles, blend_seq.PIX), dtype=torch.bool,
+                       device=dev)
+    keys = ("k1_box", "k1_live", "k1_staged", "k2_box", "k2_live",
+            "k2_staged", "visited", "blended")
+    n = dict.fromkeys(keys, 0)
+    chunk = max(1, (1 << 24) // max(1, num_tiles * blend_seq.PIX))
+    for i0 in range(0, int(count.max()) if num_tiles else 0, chunk):
+        i = torch.arange(i0, i0 + chunk, device=dev)
+        inrange = i[None] < count[:, None]               # (T, C)
+        col = torch.where(inrange, start[:, None] + i[None], 0)
+        mx, my, ca, cbc, cc, op = packed[:6, col, None]  # (T, C, 1)
+        cut, x_lo, x_hi, y_lo, y_hi = stage[:, col, None]
+        dx = mx - px
+        dy = my - py
+        power = -0.5 * (ca * (dx * dx) + cc * (dy * dy)) - cbc * (dx * dy)
+        alpha = torch.clamp_max(op * torch.exp(power), ALPHA_MAX)
+        nonzero = ((power <= 0.0) & (alpha >= ALPHA_MIN)
+                   & inrange[..., None])                 # a > 0
+        box = ((px >= x_lo) & (px <= x_hi) & (py >= y_lo) & (py <= y_hi)
+               & inrange[..., None])
+        live = ~(power < cut) & (power <= 0.0) & inrange[..., None]
+        before = i[None, :, None] < last                 # (T, C, PIX)
+        hit = nonzero & ~before                          # makes it done
+        prior = hit.cumsum(dim=1) - hit.long()
+        visit = inrange[..., None] & ~done[:, None] & (prior == 0)
+        done |= hit.any(dim=1)
+        walk = before & inrange[..., None]
+        for key, mask in (("k1_box", visit & box), ("k1_live", visit & live),
+                          ("k1_staged", visit.any(dim=2)),
+                          ("k2_box", walk & box), ("k2_live", walk & live),
+                          ("k2_staged", walk.any(dim=2)), ("visited", visit),
+                          ("blended", nonzero & before)):
+            n[key] += int(mask.sum())
+    return n
+
+
+def seq_ops(kernel, blend_ops):
+    """The operation count of K1 (``kernel`` "k1") or K2 ("k2") as the
+    function needs it (``seq_pair_counts``), ``blend_ops`` per blended
+    pair; a ``count`` for ``fwd_parity`` and ``bwd_parity``. Fails unless
+    the blended pairs, and K1's visited pairs, are the plain version's."""
+    def count(args, raw, pairs, blended):
+        n = seq_pair_counts(*args[:4], raw)
+        check(n["blended"] == blended and (kernel == "k2"
+                                           or n["visited"] == pairs),
+              f"{kernel} pair counts {n} disagree with the plain version's "
+              f"({pairs} visited or walked, {blended} blended)")
+        ops = (SEQ_POWER_OPS * n[f"{kernel}_box"]
+               + SEQ_ALPHA_OPS * n[f"{kernel}_live"]
+               + SEQ_STAGE_OPS * n[f"{kernel}_staged"] + blend_ops * blended)
+        return ops, (f"pairs needing the power {n[f'{kernel}_box']}, alpha "
+                     f"{n[f'{kernel}_live']}, blended {blended} (of "
+                     f"{pairs} {'visited' if kernel == 'k1' else 'walked'}); "
+                     f"staged instances {n[f'{kernel}_staged']}")
+    return count
+
+
+def fwd_parity(label, kernel, plain, args, pix, count_ops, plain_reps=2):
     """A blend forward kernel (K1, K4) vs its plain version on the card:
     ``args`` are both's arguments, the first three (packed, tile_start,
-    tile_count). Returns (max |d| of color and T, device ms, dispatch ms,
-    plain ms, bound by bytes, bound by operations)."""
+    tile_count). The plain version's time is the mean of ``plain_reps``
+    calls (CUDA events), or with 0 that of the parity run (host clock).
+    ``count_ops(args, output, visited, blended)`` gives the bound's FP32
+    operations and their account. Returns (max |d| of color and T, device
+    ms, dispatch ms, plain ms, bound by bytes, bound by operations)."""
     packed, _, tile_count = args[:3]
     got = kernel(*args)
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
     want, pairs, blended = plain(*args, return_pairs=True)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
     err = (got[:, :4] - want[:, :4]).abs().max().item()
     agree = (got[:, 4] == want[:, 4]).float().mean().item()
     n_inst = int(tile_count.sum())
@@ -354,16 +419,16 @@ def fwd_parity(label, kernel, plain, args, pix, visit_ops, blend_ops):
 
     ms = device_ms(lambda: kernel(*args), reps=50)
     dispatch_ms = cuda_ms(lambda: kernel(*args), reps=50)
-    plain_ms = cuda_ms(lambda: plain(*args), reps=2)
-    ops = pairs * visit_ops + blended * blend_ops
+    if plain_reps:
+        plain_ms = cuda_ms(lambda: plain(*args), reps=plain_reps)
+    ops, account = count_ops(args, got, pairs, blended)
     nbytes = (blend_pallas.PROWS * n_inst * 4 + 2 * num_tiles * 4
               + num_tiles * 5 * pix * 4)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / FP32_OPS_PER_S * 1e3
     print(f"{label} timing: {ms:.4f} ms/launch (device time, 50 launches), "
           f"{dispatch_ms:.4f} ms/launch (CUDA events, 50 back to back), "
-          f"plain version {plain_ms:.1f} ms; visited pairs {pairs}, blended "
-          f"pairs {blended}, {ops:.4g} FP32 ops "
+          f"plain version {plain_ms:.1f} ms; {account}, {ops:.4g} FP32 ops "
           f"-> {t_ops:.4f} ms; {nbytes} bytes -> {t_bytes:.4f} ms")
     return err, ms, dispatch_ms, plain_ms, t_bytes, t_ops
 
@@ -377,8 +442,7 @@ def phase_k1_parity(params, state):
         "neuralgaussiansplatting_tpu/ops/blend_seq.py:91",
         *fwd_parity("k1", blend_seq.blend_seq_fwd,
                     blend_seq.blend_tiles_seq_reference, args,
-                    blend_seq.PIX, K1_VISIT_OPS_PER_PAIR,
-                    K1_BLEND_OPS_PER_PAIR))
+                    blend_seq.PIX, seq_ops("k1", K1_BLEND_OPS_PER_PAIR)))
 
 
 def phase_k4_parity(params, state, settings):
@@ -393,8 +457,8 @@ def phase_k4_parity(params, state, settings):
         "neuralgaussiansplatting_tpu/ops/blend_pallas.py:260",
         *fwd_parity("k4", blend_pallas.blend_pallas_fwd,
                     blend_pallas.blend_tiles_pallas_reference, args,
-                    tile[0] * tile[1], K4_VISIT_OPS_PER_PAIR,
-                    K4_BLEND_OPS_PER_PAIR))
+                    tile[0] * tile[1], flat_ops(K4_VISIT_OPS_PER_PAIR,
+                                                K4_BLEND_OPS_PER_PAIR)))
 
 
 def gate_error(got, want, same_card=False):
@@ -419,28 +483,31 @@ def gate_error(got, want, same_card=False):
 
 def photometric_cotangent(raw, tiles_x, tiles_y, target, bg, block_x=32,
                           block_y=32):
-    """d photometric_loss / d raw, with the image assembled from a blend
-    kernel's output (K1's, or K4's at its tile size) as ``rasterize``
-    assembles it."""
+    """d photometric_loss / d raw, with the image (of ``target``'s size)
+    assembled from a blend kernel's output (K1's, or K4's at its tile size)
+    as ``rasterize`` assembles it."""
     raw = raw.detach().requires_grad_()
     color = raw[:, 0:3].transpose(1, 2) + raw[:, 3][..., None] * bg
-    image = blend_plain.assemble_image(color, tiles_x, tiles_y, block_x,
-                                       block_y, W, H).permute(2, 0, 1)
+    image = blend_plain.assemble_image(
+        color, tiles_x, tiles_y, block_x, block_y, target.shape[2],
+        target.shape[1]).permute(2, 0, 1)
     loss = losses.photometric_loss(image, target, 0.2)
     return torch.autograd.grad(loss, raw)[0].contiguous()
 
 
-def bwd_parity(label, fwd, bwd, plain, packed, inst, rest, tile, walk_ops,
-               blend_ops):
+def bwd_parity(label, fwd, bwd, plain, packed, inst, rest, tile, count_ops,
+               size=(W, H), plain_reps=1):
     """A blend backward kernel (K2, K5) vs its plain version on the card,
-    with the cotangent of the photometric loss against a seeded target:
-    ``fwd``/``bwd``/``plain`` take (packed, tile_start, tile_count[, raw,
-    cot], *rest); ``tile`` is (block_x, block_y). Returns (max |d|, device
-    ms, dispatch ms, plain ms, bound by bytes, bound by operations)."""
+    with the cotangent of the photometric loss against a seeded target of
+    ``size`` (width, height): ``fwd``/``bwd``/``plain`` take (packed,
+    tile_start, tile_count[, raw, cot], *rest); ``tile`` is (block_x,
+    block_y); ``plain_reps`` and ``count_ops`` (with the walked pairs) as in
+    ``fwd_parity``. Returns (max |d|, device ms, dispatch ms, plain ms,
+    bound by bytes, bound by operations)."""
     args = (packed, inst.tile_start, inst.tile_count)
     raw = fwd(*args, *rest)
     gen = torch.Generator(device="cuda").manual_seed(7)
-    target = torch.rand((3, H, W), generator=gen, device="cuda")
+    target = torch.rand((3, size[1], size[0]), generator=gen, device="cuda")
     tiles_x = rest[0]
     cot = photometric_cotangent(raw, tiles_x, inst.tile_count.shape[0]
                                 // tiles_x, target,
@@ -449,7 +516,10 @@ def bwd_parity(label, fwd, bwd, plain, packed, inst, rest, tile, walk_ops,
     got = bwd(*bwd_args)
     again = bwd(*bwd_args)
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
     want, walked, blended = plain(*bwd_args, return_pairs=True)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
     check(torch.isfinite(got).all().item(), f"{label.upper()} output not "
           "finite")
     check(torch.equal(got, again), f"two {label.upper()} launches differ")
@@ -473,8 +543,9 @@ def bwd_parity(label, fwd, bwd, plain, packed, inst, rest, tile, walk_ops,
 
     ms = device_ms(lambda: bwd(*bwd_args), reps=50)
     dispatch_ms = cuda_ms(lambda: bwd(*bwd_args), reps=50)
-    plain_ms = cuda_ms(lambda: plain(*bwd_args), reps=1)
-    ops = walked * walk_ops + blended * blend_ops
+    if plain_reps:
+        plain_ms = cuda_ms(lambda: plain(*bwd_args), reps=plain_reps)
+    ops, account = count_ops((*args, *rest), raw, walked, blended)
     num_tiles = inst.tile_count.shape[0]
     nbytes = (blend_pallas.PROWS * int(stop.sum()) * 4 + 2 * num_tiles * 4
               + num_tiles * (5 + 4) * tile[0] * tile[1] * 4
@@ -483,22 +554,38 @@ def bwd_parity(label, fwd, bwd, plain, packed, inst, rest, tile, walk_ops,
     t_ops = ops / FP32_OPS_PER_S * 1e3
     print(f"{label} timing: {ms:.4f} ms/launch (device time, 50 launches), "
           f"{dispatch_ms:.4f} ms/launch (CUDA events, 50 back to back), "
-          f"plain version {plain_ms:.1f} ms; walked pairs {walked}, blended "
-          f"pairs {blended}, {ops:.4g} FP32 ops -> {t_ops:.4f} ms; {nbytes} "
-          f"bytes -> {t_bytes:.4f} ms")
+          f"plain version {plain_ms:.1f} ms; {account}, {ops:.4g} FP32 ops "
+          f"-> {t_ops:.4f} ms; {nbytes} bytes -> {t_bytes:.4f} ms")
     return err, ms, dispatch_ms, plain_ms, t_bytes, t_ops
+
+
+def tile_load(label, tile_count, raw):
+    """Print the mean, p99 and max of the tiles' instance counts and of
+    their stops (the deepest contributor, where K2's walk ends)."""
+    stop = torch.minimum(tile_count, raw[:, 4].amax(dim=1).to(torch.int32))
+
+    def stats(x):
+        x = x.double()
+        return (f"mean {x.mean().item():.1f}, p99 "
+                f"{torch.quantile(x, 0.99).item():.1f}, max "
+                f"{int(x.max())}")
+
+    print(f"{label} tile load: {tile_count.numel()} tiles; tile_count "
+          f"{stats(tile_count)}; stop {stats(stop)}")
 
 
 def phase_k2_parity(params, state):
     """K2 vs its plain version on the card, at the bench shapes."""
     packed, inst, tiles_x = k1_inputs(params, state, demo.demo_camera(W, H))
+    tile_load("bench 800x800", inst.tile_count, blend_seq.blend_seq_fwd(
+        packed, inst.tile_start, inst.tile_count, tiles_x))
     return kernel_row(
         "blend_seq_bwd", "blend_seq_bwd.cu",
         "neuralgaussiansplatting_tpu/ops/blend_seq.py:202",
         *bwd_parity("k2", blend_seq.blend_seq_fwd, blend_seq.blend_seq_bwd,
                     blend_seq.blend_tiles_seq_bwd_reference, packed, inst,
                     (tiles_x,), (blend_seq.BX, blend_seq.BY),
-                    K2_WALK_OPS_PER_PAIR, K2_BLEND_OPS_PER_PAIR))
+                    seq_ops("k2", K2_BLEND_OPS_PER_PAIR)))
 
 
 def phase_k5_parity(params, state, settings):
@@ -513,8 +600,8 @@ def phase_k5_parity(params, state, settings):
         *bwd_parity("k5", blend_pallas.blend_pallas_fwd,
                     blend_pallas.blend_pallas_bwd,
                     blend_pallas.blend_tiles_pallas_bwd_reference, packed,
-                    inst, (tiles_x, *tile), tile, K5_WALK_OPS_PER_PAIR,
-                    K5_BLEND_OPS_PER_PAIR))
+                    inst, (tiles_x, *tile), tile,
+                    flat_ops(K5_WALK_OPS_PER_PAIR, K5_BLEND_OPS_PER_PAIR)))
 
 
 def phase_small_reference():
@@ -1019,7 +1106,8 @@ def phase_garden():
     """The garden regime on the pallas path: monitors, 3 forward renders, 2
     render + L1+SSIM + backward passes with finite gradients, and the image
     against the seq (32x32) render of the same cloud at the tiling band
-    gate; peak memory."""
+    gate; peak memory. Then ``garden_seq`` with the seq settings; returns
+    its rows."""
     t0 = time.perf_counter()
     params, state, cam = demo.demo_scene(n=GARDEN_N, w=GARDEN_W, h=GARDEN_H,
                                          seed=3, sh_degree=SH_DEGREE)
@@ -1119,6 +1207,82 @@ def phase_garden():
           "garden image outside the 16x16 / 32x32 tiling band gate")
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"garden: peak memory {peak:.2f} GiB")
+    return garden_seq(params, state, cam, seq)
+
+
+def garden_seq(params, state, cam, settings):
+    """The 32x32 seq path at the garden shapes: K1 and K2 against their
+    plain versions on one view at the gates of the bench shapes (the plain
+    versions timed by their one parity run), their device times and bounds,
+    and one seq render and one render + L1+SSIM + backward (host clock).
+    Returns {"K1": ..., "K2": ...}: each kernel's garden numbers."""
+    size = (GARDEN_W, GARDEN_H)
+    packed, inst, tiles_x = k1_inputs(params, state, cam, settings=settings)
+    args = (packed, inst.tile_start, inst.tile_count, tiles_x)
+    tile_load(f"garden {GARDEN_W}x{GARDEN_H}", inst.tile_count,
+              blend_seq.blend_seq_fwd(*args))
+    rows = {}
+    for name, numbers in (
+            ("K1", fwd_parity("k1 garden", blend_seq.blend_seq_fwd,
+                              blend_seq.blend_tiles_seq_reference, args,
+                              blend_seq.PIX,
+                              seq_ops("k1", K1_BLEND_OPS_PER_PAIR),
+                              plain_reps=0)),
+            ("K2", bwd_parity("k2 garden", blend_seq.blend_seq_fwd,
+                              blend_seq.blend_seq_bwd,
+                              blend_seq.blend_tiles_seq_bwd_reference, packed,
+                              inst, (tiles_x,), (blend_seq.BX, blend_seq.BY),
+                              seq_ops("k2", K2_BLEND_OPS_PER_PAIR),
+                              size=size, plain_reps=0))):
+        err, ms, dispatch_ms, plain_ms, t_bytes, t_ops = numbers
+        rows[name] = {"instances": int(inst.tile_count.sum()),
+                      "tiles": inst.tile_count.numel(), "max_abs_err": err,
+                      "ms": ms, "dispatch_ms": dispatch_ms,
+                      "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops)}
+    del packed, inst
+
+    bg = torch.zeros(3, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    target = torch.rand((3, GARDEN_H, GARDEN_W), generator=gen,
+                        device="cuda")
+    mpix = GARDEN_W * GARDEN_H / 1e6
+
+    def fwd_bwd():
+        leaves = [a.detach().requires_grad_() for a in params]
+        out = render(cam, gm.GaussianParams(*leaves), state.alive, SH_DEGREE,
+                     bg, settings)
+        loss = losses.photometric_loss(out["render"], target, 0.2)
+        return torch.autograd.grad(loss, leaves, allow_unused=True)
+
+    reset_launch_counts()
+    fwd_ms, fb_ms = [], []
+    with torch.no_grad():
+        for _ in range(3):
+            t0 = time.perf_counter()
+            render(cam, params, state.alive, SH_DEGREE, bg, settings)
+            torch.cuda.synchronize()
+            fwd_ms.append((time.perf_counter() - t0) * 1e3)
+    for _ in range(3):
+        t0 = time.perf_counter()
+        grads = fwd_bwd()
+        torch.cuda.synchronize()
+        fb_ms.append((time.perf_counter() - t0) * 1e3)
+    counts = launch_counts()
+    check(counts == {"K1": 6, "K2": 3, "K4": 0, "K5": 0},
+          f"3 garden seq renders and 3 fwd+bwd launched {counts}")
+    check(all(g is None or torch.isfinite(g).all().item() for g in grads),
+          "garden seq gradient not finite")
+    print(f"garden seq (32x32, max_per_tile {settings.max_per_tile}; "
+          f"launches {counts}): render "
+          + ", ".join(f"{ms:.3f}" for ms in fwd_ms[1:])
+          + " ms; render + L1+SSIM + backward "
+          + ", ".join(f"{ms:.3f}" for ms in fb_ms[1:])
+          + f" ms (host clock, synchronised, after one warm-up each; "
+          f"{mpix / statistics.median(fb_ms[1:]) * 1e3:.3f} Mpix/s fwd+bwd)")
+    for name, row in rows.items():
+        row["render_ms"] = fwd_ms[1:]
+        row["fwd_bwd_ms"] = fb_ms[1:]
+    return rows
 
 
 def neural_scene():
@@ -1626,7 +1790,9 @@ def main():
     rows["K5"] = phase_k5_parity(params, state, pallas)
     rows["K4"]["launches"], rows["K5"]["launches"] = phase_pallas_train(
         params, state)
-    phase_garden()
+    garden = phase_garden()
+    for name in ("K1", "K2"):
+        rows[name]["garden"] = garden[name]
 
     nparams, nstate = neural_scene()
     rows["K3"] = phase_k3_parity(nparams, nstate)

@@ -33,51 +33,89 @@
 // the caller's zeros. The library is built with --fmad=false and uses the
 // precise expf, as K1 is.
 //
-// Design: one 256-thread block per tile, 4 pixels per thread with K1's pixel
-// mapping (p = threadIdx.x + 256*q). The tile's instances are staged through
-// shared memory in batches of 128 columns of the (9, K) table. For each
-// instance every thread adds its 4 pixels' 9 terms; a fixed __shfl_xor_sync
-// butterfly sums them across the warp, and lane 0 stores the warp's partial
-// in shared memory as [8 warps][9 rows][128 slots]. After the batch one
-// thread per (row, slot) adds the 8 warp partials in a fixed order and stores
-// the sum, coalesced. No atomics: the output repeats bit for bit. A warp
-// skips the butterfly for an instance that none of its pixels blended
-// (__any_sync), which is most of them past the pixels' early stops.
+// What bounds it on an H100: arithmetic, as the function needs it: per
+// pair before the pixel's own n_contrib, the power (11 FP32 operations)
+// where the pixel lies inside the instance's box and an expf and 2 more
+// where the power is at or above the cutoff; ~47 more per blended pair;
+// the cutoff and box once per instance; against 36 bytes of attributes and
+// 36 bytes of gradient rows per slot (chip_smoke.py works the bound out
+// from each run's data). The design (PERF.md has the split of the time
+// and the variants tried):
 //
-// What bounds it on an H100: arithmetic. Each (instance, pixel) pair up to
-// the stop costs the forward recompute (~23 FP32 operations and one expf)
-// and each blended pair ~38 more for the gradient terms, against 36 bytes of
-// attributes per instance shared by 1024 pixels and 36 bytes of gradient
-// rows per slot. The butterfly adds 45 shuffles per warp and instance where
-// any pixel blended. chip_smoke.py works the bound out from each run's data.
+// - One 256-thread CTA per tile, 4 pixels per thread: a 2x2 cell, each warp
+//   a compact 16x8 patch, so the lanes of a warp mostly blend or skip
+//   together. A cell's pixels share their column's dx and A*dx*dx and their
+//   row's dy and C*dy*dy.
+// - Each pixel stops at its own n_contrib (past it the pixel blends
+//   nothing) and on done; each warp at the deepest contributor of its 128
+//   pixels, writing zeros for the rest of the batch.
+// - K1's exact alpha-floor skip (seq_cutoff, blend_seq_common.cuh): a pair
+//   below the cutoff has a = 0, so w = 0 and it adds exactly zero
+//   everywhere; and K1's per-warp box test (seq_box): a warp whose 16x8
+//   patch misses an instance's box writes its zero partials without
+//   computing any power.
+// - The per-pixel work is straight-line code under warp-wide votes (the
+//   gradient terms run when any lane of the warp needs them), so that a
+//   thread's 4 pixels interleave; the terms of pairs that did not blend are
+//   zeroed and add +-0.
+// - Per instance a warp that blended anything sums its 9 rows by a fixed
+//   reduce-scatter: rows 0-7 by recursive halving (4 + 2 + 1 shuffles, then
+//   2 butterfly steps), row 8 by a 5-step butterfly, 14 shuffles in all
+//   (a full butterfly per row takes 45); the lane groups then hold one row
+//   each and store it into the CTA's [8 warps][9 rows][128 slots]
+//   partials. After the batch one thread per (row, slot) adds the 8 warps
+//   in order and stores the sum, coalesced. No atomics: the output repeats
+//   bit for bit.
 
 #include <cuda_runtime.h>
 
+#include "blend_seq_common.cuh"
+
 namespace {
 
-constexpr int kTile = 32;
-constexpr int kPix = kTile * kTile;          // 1024 pixels per tile
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kPerThread = kPix / kThreads;  // 4 pixels per thread
-constexpr int kBatch = 128;                  // instances staged per batch
-constexpr int kRows = 9;                     // x y A B C opacity r g b
-constexpr unsigned kFull = 0xffffffffu;
+using namespace blend_seq;
 
-// The float32 values of the JAX package's constants, bit for bit.
-constexpr float kAlphaMax = 0x1.fae148p-1f;  // 0.99
-constexpr float kAlphaMin = 0x1.010102p-8f;  // 1/255
-constexpr float kStopT = 0x1.a36e2ep-14f;    // 1e-4
+constexpr int kPerThread = 4;  // a 2x2 cell: pixel q at (q % 2, q / 2)
 
-__global__ void __launch_bounds__(kThreads)
+// Sum acc[0..8] over the warp. Returns the sum of row (lane >> 2) & 7 in
+// every lane, and the sum of row 8 in `row8`; the order is fixed.
+__device__ __forceinline__ float warp_rows(const float (&acc)[kRows],
+                                           int lane, float& row8) {
+  float v[4], u[2];
+  const bool b4 = lane & 16, b3 = lane & 8, b2 = lane & 4;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {  // lanes 0-15 keep rows 0-3, 16-31 rows 4-7
+    const float send = b4 ? acc[i] : acc[i + 4];
+    const float keep = b4 ? acc[i + 4] : acc[i];
+    v[i] = keep + __shfl_xor_sync(kFull, send, 16);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float send = b3 ? v[i] : v[i + 2];
+    const float keep = b3 ? v[i + 2] : v[i];
+    u[i] = keep + __shfl_xor_sync(kFull, send, 8);
+  }
+  float s = (b2 ? u[1] : u[0]) + __shfl_xor_sync(kFull, b2 ? u[0] : u[1], 4);
+  s = s + __shfl_xor_sync(kFull, s, 2);
+  s = s + __shfl_xor_sync(kFull, s, 1);
+  float r8 = acc[8];
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    r8 = r8 + __shfl_xor_sync(kFull, r8, off);
+  row8 = r8;
+  return s;
+}
+
+__global__ void __launch_bounds__(kThreads, 2)
 blend_seq_bwd_kernel(const int* __restrict__ tile_start,
                      const int* __restrict__ tile_count,
                      const float* __restrict__ packed, long long k,
                      const float* __restrict__ raw,
                      const float* __restrict__ cot, int tiles_x,
                      int track_contrib, float* __restrict__ grad) {
-  __shared__ float batch[kRows][kBatch];
-  __shared__ float part[kWarps][kRows][kBatch];
+  __shared__ Staged batch[kBatch];
+  // +1: the 8 lane groups' stores of rows 0-7 fall in 8 banks
+  __shared__ float part[kWarps][kRows][kBatch + 1];
   __shared__ int warp_max[kWarps];
 
   const int t = blockIdx.x;
@@ -90,126 +128,158 @@ blend_seq_bwd_kernel(const int* __restrict__ tile_start,
 
   const float* res = raw + static_cast<long long>(t) * 5 * kPix;
   const float* ct = cot + static_cast<long long>(t) * 5 * kPix;
-  float px[kPerThread], py[kPerThread], trans[kPerThread];
+
+  // the tile's stop: its deepest contributor over all 1024 pixels
+  int deepest = 0;
+  for (int p = threadIdx.x; p < kPix; p += kThreads)
+    deepest = max(deepest, static_cast<int>(res[4 * kPix + p]));
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    deepest = max(deepest, __shfl_xor_sync(kFull, deepest, off));
+  if (lane == 0) warp_max[warp] = deepest;
+  __syncthreads();
+  deepest = 0;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) deepest = max(deepest, warp_max[w]);
+  const int limit = track_contrib ? min(count, deepest) : count;
+
+  // The 8 warps tile the tile with 16x8 patches, 2 across and 4 down; lane
+  // l owns the 2x2 cell (l % 8, l / 8) of its patch; pixel q of the cell is
+  // (x0 + q % 2, y0 + q / 2).
+  const int wx = (warp & 1) * 16;
+  const int wy = (warp >> 1) * 8;
+  const int cx = wx + (lane & 7) * 2;
+  const int cy = wy + (lane >> 3) * 2;
+  const float x0 = static_cast<float>(tx * kTile + cx);
+  const float y0 = static_cast<float>(ty * kTile + cy);
+  float trans[kPerThread];
   float gr[kPerThread], gg[kPerThread], gb[kPerThread];
   float tot[kPerThread], prefix[kPerThread];
+  int stop[kPerThread];  // past it the pixel blends nothing
   bool done[kPerThread];
-  int deepest = 0;
+  int warp_stop = 0;
 #pragma unroll
   for (int q = 0; q < kPerThread; ++q) {
-    const int p = threadIdx.x + q * kThreads;
-    px[q] = static_cast<float>(tx * kTile + p % kTile);
-    py[q] = static_cast<float>(ty * kTile + p / kTile);
+    const int p = (cy + q / 2) * kTile + cx + q % 2;
     gr[q] = ct[0 * kPix + p];
     gg[q] = ct[1 * kPix + p];
     gb[q] = ct[2 * kPix + p];
     tot[q] = res[0 * kPix + p] * gr[q] + res[1 * kPix + p] * gg[q] +
              res[2 * kPix + p] * gb[q] + res[3 * kPix + p] * ct[3 * kPix + p];
-    deepest = max(deepest, static_cast<int>(res[4 * kPix + p]));
+    stop[q] = track_contrib ? min(limit, static_cast<int>(res[4 * kPix + p]))
+                            : limit;
+    warp_stop = max(warp_stop, stop[q]);
     trans[q] = 1.f;
     prefix[q] = 0.f;
     done[q] = false;
   }
-
-  int limit = count;
-  if (track_contrib) {
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      deepest = max(deepest, __shfl_xor_sync(kFull, deepest, off));
-    if (lane == 0) warp_max[warp] = deepest;
-    __syncthreads();
-    deepest = 0;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) deepest = max(deepest, warp_max[w]);
-    limit = min(count, deepest);
-  }
+  warp_stop = __reduce_max_sync(kFull, warp_stop);
+  // the warp's patch, for the box test
+  const float wx0 = static_cast<float>(tx * kTile + wx);
+  const float wy0 = static_cast<float>(ty * kTile + wy);
+  const float wx1 = wx0 + 15.f;
+  const float wy1 = wy0 + 7.f;
 
   for (int base = 0; base < limit; base += kBatch) {
     const int nb = min(kBatch, limit - base);
     __syncthreads();  // the previous batch's buffers are consumed
-    for (int idx = threadIdx.x; idx < kRows * kBatch; idx += kThreads) {
-      const int row = idx / kBatch;
-      const int j = idx % kBatch;
-      const long long col = start + base + j;
-      batch[row][j] = (j < nb && col < k) ? packed[row * k + col] : 0.f;
-    }
+    stage_batch(batch, packed, k, start + base, nb);
     __syncthreads();
 
-    for (int j = 0; j < nb; ++j) {
-      const float mx = batch[0][j];
-      const float my = batch[1][j];
-      const float ca = batch[2][j];
-      const float cbc = batch[3][j];
-      const float cc = batch[4][j];
-      const float op = batch[5][j];
-      const float r = batch[6][j];
-      const float g = batch[7][j];
-      const float b = batch[8][j];
+    // this warp's slots past its deepest contributor hold zeros
+    const int nw = max(0, min(nb, warp_stop - base));
+    for (int idx = lane; idx < (nb - nw) * kRows; idx += 32)
+      part[warp][idx % kRows][nw + idx / kRows] = 0.f;
+    // Straight-line over the thread's pixels, so that their chains
+    // interleave; warp-wide votes skip what no lane needs.
+    for (int j = 0; j < nw; ++j) {
+      if (box_missed(batch, j, wx0, wx1, wy0, wy1)) {  // adds zero
+        if ((lane & 3) == 0) part[warp][lane >> 2][j] = 0.f;
+        if (lane == 0) part[warp][8][j] = 0.f;
+        continue;
+      }
+      const Staged in = load_staged(batch, j);
+      const float ca = in.ca, cbc = in.cbc, cc = in.cc;
+      // a cell's pixels share their column's dx and A*dx*dx, their row's
+      // dy and C*dy*dy: the same values, computed once
+      float dxc[2], dyr[2], adx[2], cdy[2];
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        dxc[c] = in.mx - (x0 + static_cast<float>(c));
+        adx[c] = ca * (dxc[c] * dxc[c]);
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        dyr[r] = in.my - (y0 + static_cast<float>(r));
+        cdy[r] = cc * (dyr[r] * dyr[r]);
+      }
+      float dx[kPerThread], dy[kPerThread], power[kPerThread];
+      bool need[kPerThread];
+      bool any_need = false;
+#pragma unroll
+      for (int q = 0; q < kPerThread; ++q) {
+        dx[q] = dxc[q % 2];
+        dy[q] = dyr[q / 2];
+        power[q] = -0.5f * (adx[q % 2] + cdy[q / 2]) -
+                   cbc * (dx[q] * dy[q]);
+        // past the pixel's stop, done, or below the cutoff (a = 0), a pair
+        // adds exactly zero
+        need[q] = !done[q] && base + j < stop[q] && !(power[q] < in.cut);
+        any_need |= need[q];
+      }
       float acc[kRows];
 #pragma unroll
       for (int row = 0; row < kRows; ++row) acc[row] = 0.f;
       bool any = false;
+      if (__any_sync(kFull, any_need)) {
 #pragma unroll
-      for (int q = 0; q < kPerThread; ++q) {
-        const float dx = mx - px[q];
-        const float dy = my - py[q];
-        const float power =
-            -0.5f * (ca * (dx * dx) + cc * (dy * dy)) - cbc * (dx * dy);
-        const float gexp = expf(power);
-        const float opg = op * gexp;
-        const float alpha = fminf(kAlphaMax, opg);
-        const float a = (power <= 0.f && alpha >= kAlphaMin) ? alpha : 0.f;
-        const float cdot = r * gr[q] + g * gg[q] + b * gb[q];
-        const float ta = trans[q] * a;
-        const float t_new = trans[q] - ta;
-        const bool alive = t_new >= kStopT && !done[q];
-        const bool blended = alive && a > 0.f;
-        const float w = blended ? ta : 0.f;
-        prefix[q] = prefix[q] + w * cdot;
-        if (blended) {
+        for (int q = 0; q < kPerThread; ++q) {
+          const float gexp = expf(power[q]);
+          const float opg = in.op * gexp;
+          const float alpha = fminf(kAlphaMax, opg);
+          const float a = (need[q] && power[q] <= 0.f && alpha >= kAlphaMin)
+                              ? alpha : 0.f;
+          const float ta = trans[q] * a;
+          const float t_new = trans[q] - ta;
+          // a = 0 leaves T as it was (T*0 = 0, t_new = T >= 1e-4)
+          const bool blended = a > 0.f && t_new >= kStopT;
+          done[q] = done[q] || (a > 0.f && t_new < kStopT);
+          const float w = blended ? ta : 0.f;
+          const float cdot = in.r * gr[q] + in.g * gg[q] + in.b * gb[q];
+          prefix[q] = prefix[q] + w * cdot;
           const float dalpha =
               trans[q] * cdot - (tot[q] - prefix[q]) / (1.f - a);
-          const float dpow = opg * dalpha;
-          acc[0] = acc[0] + dpow * (-ca * dx - cbc * dy);
-          acc[1] = acc[1] + dpow * (-cc * dy - cbc * dx);
-          acc[2] = acc[2] + dpow * (-0.5f * dx * dx);
-          acc[3] = acc[3] + dpow * (-dx * dy);
-          acc[4] = acc[4] + dpow * (-0.5f * dy * dy);
-          acc[5] = acc[5] + gexp * dalpha;
+          // zero on pairs that did not blend, so that they add +-0
+          const float dpow = blended ? opg * dalpha : 0.f;
+          const float dop = blended ? gexp * dalpha : 0.f;
+          acc[0] = acc[0] + dpow * (-ca * dx[q] - cbc * dy[q]);
+          acc[1] = acc[1] + dpow * (-cc * dy[q] - cbc * dx[q]);
+          acc[2] = acc[2] + dpow * (-0.5f * dx[q] * dx[q]);
+          acc[3] = acc[3] + dpow * (-dx[q] * dy[q]);
+          acc[4] = acc[4] + dpow * (-0.5f * dy[q] * dy[q]);
+          acc[5] = acc[5] + dop;
           acc[6] = acc[6] + w * gr[q];
           acc[7] = acc[7] + w * gg[q];
           acc[8] = acc[8] + w * gb[q];
-          any = true;
-        }
-        if (alive) trans[q] = t_new;
-        if (t_new < kStopT) done[q] = true;
-      }
-      if (__any_sync(kFull, any)) {
-#pragma unroll
-        for (int row = 0; row < kRows; ++row) {
-          float v = acc[row];
-#pragma unroll
-          for (int off = 16; off > 0; off >>= 1)
-            v = v + __shfl_xor_sync(kFull, v, off);
-          acc[row] = v;
+          trans[q] = blended ? t_new : trans[q];
+          any |= blended;
         }
       }
-      if (lane == 0) {
-#pragma unroll
-        for (int row = 0; row < kRows; ++row) part[warp][row][j] = acc[row];
-      }
+      float s = 0.f, row8 = 0.f;
+      if (__any_sync(kFull, any)) s = warp_rows(acc, lane, row8);
+      if ((lane & 3) == 0) part[warp][lane >> 2][j] = s;
+      if (lane == 0) part[warp][8][j] = row8;
     }
     __syncthreads();
 
-    for (int idx = threadIdx.x; idx < kRows * kBatch; idx += kThreads) {
-      const int row = idx / kBatch;
-      const int j = idx % kBatch;
-      if (j < nb) {
-        float s = part[0][row][j];
+    // the CTA's sum of its 8 warps, in order
+    for (int idx = threadIdx.x; idx < kRows * nb; idx += kThreads) {
+      const int row = idx / nb;
+      const int j = idx % nb;
+      float s = part[0][row][j];
 #pragma unroll
-        for (int w = 1; w < kWarps; ++w) s = s + part[w][row][j];
-        grad[row * k + start + base + j] = s;
-      }
+      for (int w = 1; w < kWarps; ++w) s = s + part[w][row][j];
+      grad[row * k + start + base + j] = s;
     }
   }
 }

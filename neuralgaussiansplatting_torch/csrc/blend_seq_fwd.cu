@@ -18,126 +18,123 @@
 // the JAX kernel and the plain PyTorch version (ops/blend_seq.py) do. expf
 // is the full-precision one (no fast math).
 //
-// Design: one 256-thread block per tile, each thread owning 4 pixels
-// (p = threadIdx.x + 256*q: a warp covers one 32-pixel row, so the output
-// stores coalesce). The tile's instances are staged through shared memory
-// in batches of 128 columns of the (9, K) packed table (coalesced row
-// loads); every thread then walks the batch in order, reading each
-// instance's 9 attributes as shared-memory broadcasts. Before each batch,
-// __syncthreads_count ends the block once all 1024 pixels are done (the
-// TPU kernel's early exit); the same barrier also guards the batch buffer.
-// The walk stops at tile_count: the aligned padding slots after it hold the
-// zero sentinel column and would be no-ops.
+// What bounds it on an H100: arithmetic, as the function needs it: per
+// (instance, pixel) pair that a live pixel visits, the power (11 FP32
+// operations) where the pixel lies inside the instance's box and an expf
+// and 2 more where the power is at or above the cutoff; 8 more per blended
+// pair; the cutoff and box once per instance; against 36 bytes of
+// attributes per instance shared by 1024 pixels (chip_smoke.py works the
+// bound out from each run's data). What held the earlier design (one block
+// per tile) back was the spread of the work and the work no output uses:
+// 625 blocks at 800x800, the densest tile 3.7x the mean, each thread
+// walking 4 pixels to the end of its tile, every pair paying an expf though
+// ~3/4 of them cannot blend. So (PERF.md has the split of the time):
 //
-// What bounds it on an H100: arithmetic. Each (instance, pixel) pair that a
-// live pixel visits costs about 22 FP32 operations and one expf, against
-// 9*4 bytes of attributes per instance shared by 1024 pixels and 20 bytes
-// of output per pixel, so the bytes are ~1000x below the FP32 work (the
-// bound is worked out from each run's data in chip_smoke.py). Threads of a
-// block keep walking until every pixel of the tile is done, and threads
-// whose pixels are done idle within their warp: later work.
+// - Four blocks per tile, one 16x16 quadrant each, one pixel per thread;
+//   each warp owns a compact 8x4 patch of its quadrant, so its lanes
+//   mostly skip, blend and finish together. The blocks share nothing (the
+//   forward has no sum across pixels): each walks the tile's list, ends
+//   once its own 256 pixels are done (__syncthreads_count before each
+//   batch), and writes its pixels into the unchanged (T, 5, 1024) layout;
+//   a warp whose pixels are all done leaves the batch.
+// - An exact alpha-floor skip. When a batch is staged, each instance gets
+//   a power cutoff (seq_cutoff, blend_seq_common.cuh); a pair whose power
+//   lies below it gets no expf. Its alpha would be below 1/255, so a = 0
+//   and the pair is a no-op: T*0 = 0, t_new = T, no colour or n_contrib
+//   change, and done stays false because T >= 1e-4 already held. The
+//   output stays bit-equal.
+// - An exact per-warp box test. Each staged instance also gets a box
+//   (seq_box) outside which every pixel's power lies below its cutoff; a
+//   warp whose 8x4 patch misses the box skips the instance after one
+//   16-byte load and four compares, without computing any power.
+// - The expf and the blend run under a warp-wide vote (when any lane of
+//   the warp needs them), so that no lane branches on its own; each
+//   instance is read from shared memory as float4 broadcasts.
 
 #include <cuda_runtime.h>
 
+#include "blend_seq_common.cuh"
+
 namespace {
 
-constexpr int kTile = 32;
-constexpr int kPix = kTile * kTile;          // 1024 pixels per tile
-constexpr int kThreads = 256;
-constexpr int kPerThread = kPix / kThreads;  // 4 pixels per thread
-constexpr int kBatch = 128;                  // instances staged per batch
-constexpr int kRows = 9;                     // x y A B C opacity r g b
+using namespace blend_seq;
 
-// The float32 values of the JAX package's constants, bit for bit.
-constexpr float kAlphaMax = 0x1.fae148p-1f;  // 0.99
-constexpr float kAlphaMin = 0x1.010102p-8f;  // 1/255
-constexpr float kStopT = 0x1.a36e2ep-14f;    // 1e-4
+constexpr int kSplit = 4;  // blocks per tile, one 16x16 quadrant each
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 4)
 blend_seq_fwd_kernel(const int* __restrict__ tile_start,
                      const int* __restrict__ tile_count,
                      const float* __restrict__ packed, long long k,
                      int tiles_x, int track_contrib,
                      float* __restrict__ out) {
-  __shared__ float batch[kRows][kBatch];
+  __shared__ Staged batch[kBatch];
 
-  const int t = blockIdx.x;
+  const int t = blockIdx.x / kSplit;
+  const int sub = blockIdx.x % kSplit;
   const long long start = tile_start[t];
   const int count = tile_count[t];
   const int tx = t % tiles_x;
   const int ty = t / tiles_x;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
 
-  float px[kPerThread], py[kPerThread], trans[kPerThread];
-  float cr[kPerThread], cg[kPerThread], cb[kPerThread], last[kPerThread];
-  bool done[kPerThread];
-#pragma unroll
-  for (int q = 0; q < kPerThread; ++q) {
-    const int p = threadIdx.x + q * kThreads;
-    px[q] = static_cast<float>(tx * kTile + p % kTile);
-    py[q] = static_cast<float>(ty * kTile + p / kTile);
-    trans[q] = 1.f;
-    cr[q] = cg[q] = cb[q] = last[q] = 0.f;
-    done[q] = false;
-  }
+  // Quadrant (sub % 2, sub / 2); its 8 warps tile it with 8x4 patches, 2
+  // across and 4 down; lane l owns pixel (l % 8, l / 8) of its patch.
+  const int wx = (sub & 1) * 16 + (warp & 1) * 8;
+  const int wy = (sub >> 1) * 16 + (warp >> 1) * 4;
+  const int pix = (wy + (lane >> 3)) * kTile + wx + (lane & 7);
+  const float px = static_cast<float>(tx * kTile + pix % kTile);
+  const float py = static_cast<float>(ty * kTile + pix / kTile);
+  // the warp's patch, for the box test
+  const float wx0 = static_cast<float>(tx * kTile + wx);
+  const float wy0 = static_cast<float>(ty * kTile + wy);
+  const float wx1 = wx0 + 7.f;
+  const float wy1 = wy0 + 3.f;
+  float trans = 1.f, cr = 0.f, cg = 0.f, cb = 0.f, last = 0.f;
+  bool done = false;
 
   for (int base = 0; base < count; base += kBatch) {
-    int live = 0;
-#pragma unroll
-    for (int q = 0; q < kPerThread; ++q) live |= !done[q];
-    if (__syncthreads_count(live) == 0) break;
-
+    if (__syncthreads_count(!done) == 0) break;
     const int nb = min(kBatch, count - base);
-    for (int idx = threadIdx.x; idx < kRows * kBatch; idx += kThreads) {
-      const int row = idx / kBatch;
-      const int j = idx % kBatch;
-      const long long col = start + base + j;
-      batch[row][j] = (j < nb && col < k) ? packed[row * k + col] : 0.f;
-    }
+    stage_batch(batch, packed, k, start + base, nb);
     __syncthreads();
+    if (__all_sync(kFull, done)) continue;
 
     for (int j = 0; j < nb; ++j) {
-      const float mx = batch[0][j];
-      const float my = batch[1][j];
-      const float ca = batch[2][j];
-      const float cbc = batch[3][j];
-      const float cc = batch[4][j];
-      const float op = batch[5][j];
-      const float r = batch[6][j];
-      const float g = batch[7][j];
-      const float b = batch[8][j];
-      const float idx1 = static_cast<float>(base + j + 1);
-#pragma unroll
-      for (int q = 0; q < kPerThread; ++q) {
-        const float dx = mx - px[q];
-        const float dy = my - py[q];
-        const float power =
-            -0.5f * (ca * (dx * dx) + cc * (dy * dy)) - cbc * (dx * dy);
-        const float alpha = fminf(kAlphaMax, op * expf(power));
-        const float a = (power <= 0.f && alpha >= kAlphaMin) ? alpha : 0.f;
-        const float ta = trans[q] * a;
-        const float t_new = trans[q] - ta;
-        const bool alive = t_new >= kStopT && !done[q];
-        const float w = alive ? ta : 0.f;
-        cr[q] = cr[q] + w * r;
-        cg[q] = cg[q] + w * g;
-        cb[q] = cb[q] + w * b;
-        if (alive && a > 0.f) last[q] = idx1;
-        if (alive) trans[q] = t_new;
-        if (t_new < kStopT) done[q] = true;
+      if (box_missed(batch, j, wx0, wx1, wy0, wy1)) continue;  // no-ops
+      const Staged in = load_staged(batch, j);
+      const float dx = in.mx - px;
+      const float dy = in.my - py;
+      const float power = -0.5f * (in.ca * (dx * dx) + in.cc * (dy * dy)) -
+                          in.cbc * (dx * dy);
+      // below the cutoff a = 0, and a done pixel takes nothing: no-ops
+      const bool need = !done && !(power < in.cut);
+      if (!__any_sync(kFull, need)) {
+        if (__all_sync(kFull, done)) break;
+        continue;
       }
+      const float alpha = fminf(kAlphaMax, in.op * expf(power));
+      const float a =
+          (need && power <= 0.f && alpha >= kAlphaMin) ? alpha : 0.f;
+      const float ta = trans * a;
+      const float t_new = trans - ta;
+      // a = 0 leaves everything as it was (T*0 = 0, t_new = T >= 1e-4)
+      const bool blend = a > 0.f && t_new >= kStopT;
+      done = done || (a > 0.f && t_new < kStopT);
+      cr = blend ? cr + ta * in.r : cr;
+      cg = blend ? cg + ta * in.g : cg;
+      cb = blend ? cb + ta * in.b : cb;
+      last = blend ? static_cast<float>(base + j + 1) : last;
+      trans = blend ? t_new : trans;
     }
   }
 
   float* o = out + static_cast<long long>(t) * 5 * kPix;
-#pragma unroll
-  for (int q = 0; q < kPerThread; ++q) {
-    const int p = threadIdx.x + q * kThreads;
-    o[0 * kPix + p] = cr[q];
-    o[1 * kPix + p] = cg[q];
-    o[2 * kPix + p] = cb[q];
-    o[3 * kPix + p] = trans[q];
-    o[4 * kPix + p] = track_contrib ? last[q] : 0.f;
-  }
+  o[0 * kPix + pix] = cr;
+  o[1 * kPix + pix] = cg;
+  o[2 * kPix + pix] = cb;
+  o[3 * kPix + pix] = trans;
+  o[4 * kPix + pix] = track_contrib ? last : 0.f;
 }
 
 }  // namespace
@@ -151,7 +148,7 @@ int blend_seq_fwd(const void* tile_start, const void* tile_count,
                   const void* packed, long long k, int num_tiles, int tiles_x,
                   int track_contrib, void* out, void* stream) {
   if (num_tiles <= 0) return 0;
-  blend_seq_fwd_kernel<<<num_tiles, kThreads, 0,
+  blend_seq_fwd_kernel<<<num_tiles * kSplit, kThreads, 0,
                          static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(tile_start), static_cast<const int*>(tile_count),
       static_cast<const float*>(packed), k, tiles_x, track_contrib,

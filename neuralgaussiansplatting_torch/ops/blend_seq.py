@@ -11,12 +11,17 @@ tensor each launches its kernel or raises, never falling back; on a CPU
 tensor each runs its kernel's plain PyTorch version
 (``blend_tiles_seq_reference``, ``blend_tiles_seq_bwd_reference``), which
 repeats the kernel's recurrence in the same operation order. ``launches``
-and ``bwd_launches`` count the K1 and K2 launches.
+and ``bwd_launches`` count the K1 and K2 launches. ``alpha_floor_cutoff``
+is the power cutoff below which both kernels skip a pair's ``expf``, and
+``instance_box`` the box outside which a warp skips an instance;
+``stage_cutoff_box`` gives both per instance, on a CUDA tensor as the
+kernels' own device code computes them (``csrc/blend_seq_stage.cu``).
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -41,6 +46,70 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # stream)
 _FWD_ARGS = (_P, _P, _P, _LL, _I, _I, _I, _P, _P)
 _BWD_ARGS = (_P, _P, _P, _LL, _P, _P, _I, _I, _I, _P, _P)
+_STAGE_ARGS = (_P, _LL, _P, _P)
+
+
+def alpha_floor_cutoff(op: torch.Tensor) -> torch.Tensor:
+    """Per-instance power cutoff of the kernels' alpha-floor skip (float32).
+
+    For power < alpha_floor_cutoff(op), min(0.99, op * exp(power)) lies
+    below ALPHA_MIN in float32, so the pair's alpha is 0 and K1 and K2 skip
+    its ``expf``. ``seq_cutoff`` in ``csrc/blend_seq_common.cuh`` computes
+    the same: ln(ALPHA_MIN / op) less a margin of 2^-13 (1 + |ln|), which
+    covers the rounding of the division, the log, the exp and the product
+    (a few ulps, ~1e-6 (1 + |ln|) of power). op <= 0 gives NaN or -inf: no
+    pair is skipped.
+    """
+    ln = torch.log(ALPHA_MIN / op)
+    return ln - (1.0 + ln.abs()) * 2.0 ** -13
+
+
+def instance_box(mx, my, ca, cbc, cc, op) -> torch.Tensor:
+    """Per-instance box (x_lo, x_hi, y_lo, y_hi) of the kernels' warp test
+    (float32, (4, N)): at a pixel outside it the power that K1 and K2
+    compute lies below ``alpha_floor_cutoff(op)``, so a warp whose patch
+    misses the box skips the instance. ``seq_box`` in
+    ``csrc/blend_seq_common.cuh`` computes the same and states the error
+    bound; the box is the whole plane where that bound does not hold
+    (B^2 > 0.998 AC, det <= 0, a mean past 2^20, a NaN cutoff) and empty
+    where no pair can blend (a cutoff >= 0)."""
+    cut = alpha_floor_cutoff(op)
+    inf = torch.full_like(cut, math.inf)
+    ac = ca * cc
+    det = ac - cbc * cbc
+    ok = ((ca > 0) & (cc > 0) & (cbc * cbc <= 0.998 * ac) & (det > 0)
+          & (mx.abs() < 2.0 ** 20) & (my.abs() < 2.0 ** 20) & (cut < 0))
+    r2 = -2.0 * cut * (1.0 + 2.0 ** -10)
+    hx = torch.sqrt(r2 * cc / det) * (1.0 + 2.0 ** -10) + 1.0
+    hy = torch.sqrt(r2 * ca / det) * (1.0 + 2.0 ** -10) + 1.0
+    box = torch.stack([torch.where(ok, mx - hx, -inf),
+                       torch.where(ok, mx + hx, inf),
+                       torch.where(ok, my - hy, -inf),
+                       torch.where(ok, my + hy, inf)])
+    empty = torch.stack([inf, -inf, inf, -inf])
+    return torch.where(cut >= 0, empty, box)
+
+
+def stage_cutoff_box(packed: torch.Tensor) -> torch.Tensor:
+    """(5, K) float32: each instance's cutoff and box (x_lo, x_hi, y_lo,
+    y_hi), as K1 and K2 stage the (9, K) table. On a CUDA tensor it
+    launches ``csrc/blend_seq_stage.cu``, which runs the kernels' own
+    ``seq_cutoff`` and ``seq_box``; on a CPU tensor it returns
+    ``alpha_floor_cutoff`` and ``instance_box``, their PyTorch versions.
+    Not a kernel of the render: the card tests and ``chip_smoke.py`` read
+    it."""
+    if packed.dtype != torch.float32 or packed.dim() != 2 \
+            or packed.shape[0] != 9:
+        raise ValueError("packed must be (9, K) float32, got "
+                         f"{tuple(packed.shape)} {packed.dtype}")
+    if not _build.on_cuda("blend_seq_stage", (packed,)):
+        return torch.cat([alpha_floor_cutoff(packed[5])[None],
+                          instance_box(*packed[:6])])
+    out = torch.empty((5, packed.shape[1]), dtype=torch.float32,
+                      device=packed.device)
+    _build.launch("blend_seq_stage", _STAGE_ARGS, packed.device,
+                  packed.data_ptr(), packed.shape[1], out.data_ptr())
+    return out
 
 
 def _check_inputs(packed, tile_start, tile_count, tiles_x, *per_tile):

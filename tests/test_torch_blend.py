@@ -25,6 +25,10 @@ from neuralgaussiansplatting_torch.ops import blend_seq as tseq
 from neuralgaussiansplatting_torch.ops import rasterize as trast
 
 from scenes import make_camera, random_gaussians
+from test_torch_cuda import (
+    assert_box_holds_every_live_pair, assert_cutoff_never_skips_a_blend,
+    sweep_splats,
+)
 from torch_parity import port_camera, port_stage_inputs as _port_stage_inputs
 from torch_parity import to_torch
 
@@ -151,6 +155,42 @@ def test_k1_wrapper_validates_inputs():
         tseq.blend_seq_fwd(packed[:8], start, start, 2)
     with pytest.raises(ValueError):
         tseq.blend_seq_fwd(packed, start, start, 3)
+
+
+def test_alpha_floor_cutoff_never_skips_a_pair_that_blends():
+    """The PyTorch version of the kernels' alpha-floor cutoff: over a dense
+    sweep of op in (0, 1] and of the powers just below each cutoff, float32
+    min(0.99, op * exp(power)) stays below ALPHA_MIN, and 1e-3 above the
+    threshold every pair blends (``assert_cutoff_never_skips_a_blend``;
+    tests/test_torch_cuda.py holds the kernels' own cutoff to the same
+    sweep and to this one on the card)."""
+    ops, cut = assert_cutoff_never_skips_a_blend(tseq.alpha_floor_cutoff)
+    assert torch.equal(tseq.stage_cutoff_box(torch.cat([
+        torch.zeros((5, ops.numel())), ops[None],
+        torch.zeros((3, ops.numel()))]))[0], cut)
+
+
+def test_instance_box_holds_every_pair_that_is_not_skipped():
+    """The PyTorch version of the kernels' per-warp box: on random splats
+    from round to needle-thin, every pixel just outside the box computes,
+    in float32 and the kernels' operation order, a power below the cutoff
+    (``assert_box_holds_every_live_pair``; the card test holds the kernels'
+    own box to the same sweep)."""
+    splats = sweep_splats()
+    cut = tseq.alpha_floor_cutoff(splats[5])
+    box = tseq.instance_box(*splats)
+    assert_box_holds_every_live_pair(*splats, cut, box)
+    packed = torch.cat([torch.stack(splats), torch.zeros((3, cut.numel()))])
+    assert torch.equal(tseq.stage_cutoff_box(packed), torch.cat([cut[None],
+                                                                 box]))
+
+
+def test_stage_cutoff_box_validates_its_table():
+    with pytest.raises(ValueError, match="float32"):
+        tseq.stage_cutoff_box(torch.zeros((8, 4)))
+    with pytest.raises(ValueError, match="float32"):
+        tseq.stage_cutoff_box(torch.zeros((9, 4), dtype=torch.float64))
+    assert tseq.stage_cutoff_box(torch.zeros((9, 0))).shape == (5, 0)
 
 
 def test_expand_auto_is_the_scatter_expansion():

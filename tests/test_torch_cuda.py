@@ -9,8 +9,10 @@ no CPU mode); the rest check the build recipe on any host.
 """
 
 import copy
+import math
 import os
 
+import numpy as np
 import pytest
 import torch
 
@@ -21,6 +23,7 @@ from neuralgaussiansplatting_torch.models import gaussians as gm
 from neuralgaussiansplatting_torch.models import nets
 from neuralgaussiansplatting_torch.ops import _build
 from neuralgaussiansplatting_torch.ops import binning
+from neuralgaussiansplatting_torch.ops.blend import ALPHA_MAX, ALPHA_MIN
 from neuralgaussiansplatting_torch.ops import blend_pallas
 from neuralgaussiansplatting_torch.ops import blend_seq
 from neuralgaussiansplatting_torch.ops import decode_runs as k6
@@ -52,9 +55,9 @@ def test_build_targets_hopper_and_keys_on_source():
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert "--fmad=false" in _build.NVCC_FLAGS
     libs = set()
-    names = ("blend_seq_fwd", "blend_seq_bwd", "zbuffer_fwd",
-             "blend_pallas_fwd", "blend_pallas_bwd", "decode_runs",
-             "mosaic_probe")
+    names = ("blend_seq_fwd", "blend_seq_bwd", "blend_seq_stage",
+             "zbuffer_fwd", "blend_pallas_fwd", "blend_pallas_bwd",
+             "decode_runs", "mosaic_probe")
     for name in names:
         src, lib = _build._target(name)
         assert os.path.exists(src)
@@ -62,6 +65,155 @@ def test_build_targets_hopper_and_keys_on_source():
         assert lib == _build._target(name)[1]
         libs.add(lib)
     assert len(libs) == len(names)
+
+
+def sweep_opacities(device="cpu"):
+    """A dense sweep of opacities in (0, 1]: 100,001 evenly spaced, 2001
+    log-spaced down to 1e-30, the edges (1/255, 2/255, 0.1, 0.99, 1), and
+    the float32 value just below each."""
+    ops = torch.cat([
+        torch.linspace(1e-6, 1.0, 100_001, dtype=torch.float32),
+        torch.logspace(-30, 0, 2001, dtype=torch.float32),
+        torch.tensor([ALPHA_MIN, 2 * ALPHA_MIN, 0.1, 0.99, 1.0],
+                     dtype=torch.float32),
+    ])
+    ops = torch.cat([ops, torch.nextafter(ops, torch.zeros(()))])
+    return ops[ops > 0].to(device)
+
+
+def assert_cutoff_never_skips_a_blend(cutoff, device="cpu"):
+    """``cutoff(op)`` is the kernels' alpha-floor cutoff (their pairs with
+    power < cutoff skip the expf): over ``sweep_opacities`` and the powers
+    just below each cutoff (the 64 float32 values under it, and a band of
+    2x the margin), float32 min(0.99, op * exp(power)), computed on
+    ``device``, stays below ALPHA_MIN: a skipped pair never blends. Above
+    the true threshold ln(ALPHA_MIN / op) by 1e-3 (1 + |ln|), every pair
+    blends: the margin costs little. op <= 0 or NaN skips nothing. Returns
+    (ops, cutoffs)."""
+    ops = sweep_opacities(device)
+    cut = cutoff(ops)
+    assert cut.dtype == torch.float32 and torch.isfinite(cut).all()
+    below = [cut]
+    for _ in range(64):
+        below.append(torch.nextafter(below[-1],
+                                     torch.tensor(-math.inf, device=device)))
+    ln = torch.log(ALPHA_MIN / ops)
+    margin = (1.0 + ln.abs()) * 2.0 ** -13
+    band = cut[None] - margin[None] * torch.linspace(
+        0, 2, 33, dtype=torch.float32, device=device)[:, None]
+    power = torch.cat([torch.stack(below[1:]), band[1:]])
+    assert (power < cut).all()
+    alpha = torch.clamp_max(ops * torch.exp(power), ALPHA_MAX)
+    assert (alpha < ALPHA_MIN).all()
+    above = ln + 1e-3 * (1.0 + ln.abs())
+    alpha = torch.clamp_max(ops * torch.exp(above), ALPHA_MAX)
+    assert (above > cut).all() and (alpha >= ALPHA_MIN).all()
+    # the comparison with NaN is False
+    odd = cutoff(torch.tensor([0.0, -0.5, math.nan], device=device))
+    assert not (torch.tensor([-1e30, -1.0, 0.0], device=device) < odd).any()
+    return ops, cut
+
+
+def sweep_splats(n=6000, seed=5):
+    """(mx, my, A, B, C, op) float32 of ``n`` random splats, from round to
+    needle-thin (B^2 up to and past 0.998 AC), scales 0.3-300 px,
+    opacities 1e-4-1."""
+    gen = np.random.default_rng(seed)
+    s1, s2 = np.exp(gen.uniform(np.log(0.3), np.log(300.0), (2, n)))
+    theta = gen.uniform(0, np.pi, n)
+    c, s = np.cos(theta), np.sin(theta)
+    cov = np.stack([[c * c * s1 ** 2 + s * s * s2 ** 2,
+                     c * s * (s1 ** 2 - s2 ** 2)],
+                    [c * s * (s1 ** 2 - s2 ** 2),
+                     s * s * s1 ** 2 + c * c * s2 ** 2]])
+    det = cov[0, 0] * cov[1, 1] - cov[0, 1] ** 2
+    mx, my = gen.uniform(-50, 2000, (2, n))
+    op = np.exp(gen.uniform(np.log(1e-4), 0, n))
+    return [torch.tensor(v, dtype=torch.float32)
+            for v in (mx, my, cov[1, 1] / det, -cov[0, 1] / det,
+                      cov[0, 0] / det, op)]
+
+
+def assert_box_holds_every_live_pair(mx, my, ca, cbc, cc, op, cut, box):
+    """A warp whose patch misses an instance's box skips the instance;
+    that is exact only if every pixel outside the box computes (in
+    float32, in the kernels' operation order, on the tensors' device) a
+    power below the cutoff. On the integer pixels just outside each edge
+    of ``box`` (4, N), over every row (column) the ellipse spans, the power
+    lies below ``cut``. The box is finite for most splats, and empty only
+    where op < 1/255, so that no pair blends; most pairs at the mean are
+    live."""
+    finite = torch.isfinite(box).all(dim=0)
+    empty = box[0] > box[1]
+    assert (finite | empty).float().mean() > 0.8
+    assert torch.equal(empty, cut >= 0) and (op[empty] < ALPHA_MIN).all()
+
+    i = torch.nonzero(finite).squeeze(1)
+    span = torch.linspace(-1.0, 1.0, 97, device=op.device)
+    for axis in range(2):
+        lo, hi = box[2 * axis, i], box[2 * axis + 1, i]
+        o_lo, o_hi = box[2 - 2 * axis, i], box[3 - 2 * axis, i]
+        edges = torch.stack([torch.floor(lo) - 1, torch.floor(lo),
+                             torch.ceil(hi), torch.ceil(hi) + 1], dim=1)
+        outside = (edges < lo[:, None]) | (edges > hi[:, None])
+        mid, half = (o_lo + o_hi) / 2, (o_hi - o_lo) / 2
+        other = torch.round(mid[:, None] + half[:, None] * span)
+        p_axis = edges[:, :, None].expand(-1, -1, span.numel())
+        p_other = other[:, None, :].expand(-1, edges.shape[1], -1)
+        px, py = (p_axis, p_other) if axis == 0 else (p_other, p_axis)
+        dx = mx[i, None, None] - px
+        dy = my[i, None, None] - py
+        power = (-0.5 * (ca[i, None, None] * (dx * dx)
+                         + cc[i, None, None] * (dy * dy))
+                 - cbc[i, None, None] * (dx * dy))
+        below = power < cut[i, None, None]
+        assert below[outside].all(), axis
+    dx0 = mx[i] - torch.round(mx[i])
+    dy0 = my[i] - torch.round(my[i])
+    power = -0.5 * (ca[i] * (dx0 * dx0) + cc[i] * (dy0 * dy0)) \
+        - cbc[i] * (dx0 * dy0)
+    assert (power >= cut[i]).float().mean() > 0.5
+
+
+def _stage_on_gpu(mx, my, ca, cbc, cc, op):
+    """The kernels' own cutoff and box of these instances, on the card."""
+    rest = torch.zeros((3, op.numel()))
+    packed = torch.stack([mx, my, ca, cbc, cc, op, *rest]).cuda()
+    return blend_seq.stage_cutoff_box(packed)
+
+
+@pytest.mark.cuda
+def test_stage_cutoff_box_is_exact_on_gpu():
+    """The cutoff and box that K1 and K2 stage (``seq_cutoff``/``seq_box``
+    of csrc/blend_seq_common.cuh, through csrc/blend_seq_stage.cu): the
+    opacity sweep never skips a pair whose float32 alpha on the card
+    reaches 1/255, the splat sweep's boxes hold every live pair, and both
+    agree with their PyTorch versions in ops/blend_seq.py (the CPU tests'
+    subject) to far below the margins: 2^-18 (1 + |ln|) of the cutoff, 1/64
+    px plus 2^-18 of a box edge."""
+    _need_gpu()
+    zeros = lambda n: torch.zeros(n)
+
+    def cutoff(ops):
+        n = ops.numel()
+        return _stage_on_gpu(zeros(n), zeros(n), zeros(n), zeros(n),
+                             zeros(n), ops.cpu())[0]
+
+    ops, cut = assert_cutoff_never_skips_a_blend(cutoff, device="cuda")
+    want = blend_seq.alpha_floor_cutoff(ops.cpu())
+    tol = 2.0 ** -18 * (1.0 + want.abs())
+    assert ((cut.cpu() - want).abs() <= tol).all()
+
+    splats = sweep_splats()
+    staged = _stage_on_gpu(*splats)
+    cut, box = staged[0], staged[1:]
+    assert_box_holds_every_live_pair(*(v.cuda() for v in splats), cut, box)
+    want = blend_seq.instance_box(*splats)
+    box = box.cpu()
+    assert torch.equal(torch.isinf(box), torch.isinf(want))
+    fin = torch.isfinite(want)
+    assert ((box[fin] - want[fin]).abs()
+            <= 1 / 64 + 2.0 ** -18 * want[fin].abs()).all()
 
 
 def _bench_like_inputs(n, w, h, device="cuda", block=32, chunk=128):
@@ -181,6 +333,151 @@ def test_k2_matches_plain_version_on_gpu():
     worst = _assert_jax_gate(got, want, same_card_rel=1e-5)
     print(f"K2 vs plain: max error / row scale {worst:.3e}")
     assert not got[:, ~inst.valid].any()
+
+
+def _synthetic_tiles(counts, tiles_x, make, seed=0):
+    """A (9, K) packed table whose tile t holds ``counts[t]`` instances from
+    ``make(n, x0, y0, gen)`` (9 rows; x0, y0 the tile's corner), each tile's
+    segment 128-aligned as binning lays it out; with tile_start,
+    tile_count."""
+    gen = torch.Generator().manual_seed(seed)
+    starts, cols, k = [], [], 0
+    for t, n in enumerate(counts):
+        starts.append(k)
+        cols.append(make(n, 32.0 * (t % tiles_x), 32.0 * (t // tiles_x), gen))
+        k += max(128, -(-n // 128) * 128)
+    packed = torch.zeros((9, k))
+    for s, c in zip(starts, cols):
+        packed[:, s:s + c.shape[1]] = c
+    as_int = lambda v: torch.tensor(v, dtype=torch.int32, device="cuda")
+    return packed.cuda(), as_int(starts), as_int(list(counts))
+
+
+def _uniform(gen, n, lo, hi):
+    return lo + (hi - lo) * torch.rand(n, generator=gen)
+
+
+def _faint(n, x0, y0, gen):
+    """Wide splats of opacity 0.9/255-1.3/255 over the tile: alpha near the
+    floor, so few pairs blend and no pixel finishes."""
+    return torch.stack([
+        x0 + _uniform(gen, n, -8, 40), y0 + _uniform(gen, n, -8, 40),
+        _uniform(gen, n, 5e-4, 3e-3), _uniform(gen, n, -3e-4, 3e-4),
+        _uniform(gen, n, 5e-4, 3e-3), _uniform(gen, n, 0.9, 1.3) / 255,
+        *torch.rand((3, n), generator=gen)])
+
+
+def _opaque(n, x0, y0, gen):
+    """Wide splats of opacity 0.95-0.99: every pixel is done within the
+    first few instances."""
+    return torch.stack([
+        x0 + _uniform(gen, n, 0, 32), y0 + _uniform(gen, n, 0, 32),
+        _uniform(gen, n, 1e-4, 1e-3), torch.zeros(n),
+        _uniform(gen, n, 1e-4, 1e-3), _uniform(gen, n, 0.95, 0.99),
+        *torch.rand((3, n), generator=gen)])
+
+
+def _threshold(n, x0, y0, gen):
+    """Instances whose op * exp(power) lies at 1/255 to within a few ulps
+    on some pixels of the tile: the first eighth flat (conic 0, power -0,
+    op = 1/255 moved by -4..4 ulps), the rest far to the left with A set so
+    that the power at the tile's middle column is ln(1/(255 op)) and moves
+    by ~1 % of it across the tile, so that some pairs of each fall within
+    a few ulps of the alpha floor and of the kernels' cutoff band."""
+    op = _uniform(gen, n, 0.02, 1.0)
+    dist = _uniform(gen, n, 3000, 6000)
+    ln = torch.log(1 / 255 / op)
+    flat = n // 8
+    ulps = torch.arange(flat, dtype=torch.int32) % 9 - 4
+    op[:flat] = (torch.full((flat,), 1 / 255).view(torch.int32)
+                 + ulps).view(torch.float32)
+    a = -2 * ln / (dist + 16) ** 2
+    a[:flat] = 0.0
+    return torch.stack([
+        x0 - dist, y0 + _uniform(gen, n, 0, 32), a, torch.zeros(n),
+        torch.where(torch.arange(n) < flat, 0.0, 1e-7), op,
+        *torch.rand((3, n), generator=gen)])
+
+
+def _needles(n, x0, y0, gen):
+    """Thin splats (0.3-1 px across, 20-200 px long) at every angle, up to
+    B^2 = 0.9995 AC, opacity 0.3-0.99: the per-warp box test's edges and
+    its guard against ill-conditioned conics."""
+    s1 = _uniform(gen, n, 0.3, 1.0)
+    s2 = _uniform(gen, n, 20.0, 200.0)
+    theta = _uniform(gen, n, 0.0, math.pi)
+    c, s = torch.cos(theta), torch.sin(theta)
+    xx = c * c * s1 ** 2 + s * s * s2 ** 2
+    yy = s * s * s1 ** 2 + c * c * s2 ** 2
+    xy = c * s * (s1 ** 2 - s2 ** 2)
+    det = xx * yy - xy * xy
+    return torch.stack([
+        x0 + _uniform(gen, n, -16, 48), y0 + _uniform(gen, n, -16, 48),
+        yy / det, -xy / det, xx / det, _uniform(gen, n, 0.3, 0.99),
+        *torch.rand((3, n), generator=gen)])
+
+
+def _adversarial_case(case):
+    """(packed, tile_start, tile_count, tiles_x, track_contrib)."""
+    if case == "grid_25x19":
+        packed, inst, tiles_x = _bench_like_inputs(20_000, 800, 600)
+        assert inst.tile_count.numel() == 25 * 19
+        return packed, inst.tile_start, inst.tile_count, tiles_x, True
+    make, counts, tiles_x = {
+        "crowded": (_faint, [4096, 0, 50, 300], 2),
+        "contrib_off": (_faint, [4096, 0, 50, 300], 2),
+        "done_early": (_opaque, [300, 300, 300, 300], 2),
+        "threshold": (_threshold, [4096, 1024, 1024, 2000], 2),
+        "empty_tiles": (_faint, [0, 200, 0, 0, 150, 0], 3),
+        "needles": (_needles, [2000, 600, 600, 3000], 2),
+    }[case]
+    return (*_synthetic_tiles(counts, tiles_x, make), tiles_x,
+            case != "contrib_off")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["crowded", "contrib_off", "done_early",
+                                  "threshold", "empty_tiles", "needles",
+                                  "grid_25x19"])
+def test_k1_k2_adversarial_tiles_on_gpu(case):
+    """K1 bit-equal to its plain version (color, T and n_contrib on every
+    pixel) and K2 within 1e-5 of each row's scale and the JAX gate, two K2
+    launches bit-equal, on: a tile crowded to max_per_tile 4096 whose
+    pixels never finish; the same with track_contrib off (K2 walks to
+    tile_count); tiles done within the first batch; op * exp(power) within
+    a few ulps of 1/255, around the alpha-floor cutoff's margin; empty
+    tiles; needle-thin splats at every angle, along the per-warp box
+    test's edges; and a 25x19 grid of binned demo tiles (no multiple of
+    four tiles)."""
+    _need_gpu()
+    packed, start, count, tiles_x, track = _adversarial_case(case)
+    args = (packed, start, count, tiles_x, track)
+    raw = blend_seq.blend_seq_fwd(*args)
+    torch.cuda.synchronize()
+    want = blend_seq.blend_tiles_seq_reference(*args)
+    assert torch.equal(raw, want)
+    stop = count if not track else torch.minimum(
+        count, raw[:, 4].amax(dim=1).to(torch.int32))
+    if case == "crowded":
+        assert (raw[0, 3] > 1e-3).all() and int(stop[0]) > 3000
+    if case == "done_early":
+        # T freezes below 1e-4 / (1 - 0.99) once a pixel is done
+        assert (raw[:, 3] < 0.01).all() and int(stop.max()) < 128
+    if case == "empty_tiles":
+        assert torch.equal(raw[count == 0, 3], torch.ones_like(
+            raw[count == 0, 3])) and not raw[count == 0, :3].any()
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    cot = torch.randn(raw.shape, generator=gen, device="cuda")
+    bwd_args = (packed, start, count, raw, cot, tiles_x, track)
+    got = blend_seq.blend_seq_bwd(*bwd_args)
+    again = blend_seq.blend_seq_bwd(*bwd_args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    want = blend_seq.blend_tiles_seq_bwd_reference(*bwd_args)
+    worst = _assert_jax_gate(got, want, same_card_rel=1e-5)
+    print(f"{case}: K2 vs plain max error / row scale {worst:.3e}")
+    assert want.abs().amax() > 0
 
 
 @pytest.mark.cuda
