@@ -16,11 +16,13 @@ densification.
 
 Pallas path (the same cloud, ``make_settings("pallas")``: 16x16 tiles,
 capacities from a probe render): four renders, a 16x16 "seq" setting routed
-to K4, 10 ``train_step``s; then the garden regime of ``tools/bench_garden.py
+to K4, K4 and K5 against their plain versions at 16x16 and at 32x32 tiles,
+10 ``train_step``s; then the garden regime of ``tools/bench_garden.py
 --scatter`` (1920x1080, 5M Gaussians): forward and fwd+bwd times, finite
-gradients, the image against the 32x32 seq render of the same cloud; and
-the seq path at those shapes: K1 and K2 against their plain versions, their
-device times and bounds, seq render and fwd+bwd times.
+gradients, the image against the 32x32 seq render of the same cloud, K4 and
+K5 against their plain versions there with their device times and bounds;
+and the seq path at those shapes: K1 and K2 against their plain versions,
+their device times and bounds, seq render and fwd+bwd times.
 
 Neural path (800x800, 100k Gaussians, SH degree 1, seeded 64-d features,
 full-width decoders): the tiled z-buffer against the per-pixel sort oracle;
@@ -68,7 +70,6 @@ from neuralgaussiansplatting_torch.ops import decode_runs
 from neuralgaussiansplatting_torch.ops import idxmap as idxmap_ops
 from neuralgaussiansplatting_torch.ops import preprocess as pp
 from neuralgaussiansplatting_torch.ops import blend as blend_plain
-from neuralgaussiansplatting_torch.ops.blend import ALPHA_MAX, ALPHA_MIN
 from neuralgaussiansplatting_torch.ops import rasterize as rast
 from neuralgaussiansplatting_torch.ops import zbuffer_pallas
 from neuralgaussiansplatting_torch.tools import chain_bench
@@ -87,26 +88,32 @@ SETTINGS = rast.make_settings(
     "seq", capacity=512 * 1024, packed_capacity=512 * 1024,
     max_per_tile=4096, fast_sort=True, tight_culling=True, precise_cull=True)
 VIEWS = (0.0, 0.5 * math.pi, math.pi, 1.5 * math.pi)   # about the y axis
-ATOL = 5e-5            # color / final T, the JAX seq kernel's own gate
-CONTRIB_AGREE = 0.999  # n_contrib equal on at least this share of pixels
 # H100 SXM data sheet peaks (dense, no sparsity), at the 700 W limit
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 # FP32 operations counted as the function needs them, expf (logf, sqrtf) as
-# one; the comparisons and selects are not counted. K1 and K2 need, of the
-# (instance, pixel) pairs that a pixel must consider (K1: those it visits
-# while not done; K2: those before its own n_contrib), the power only where
-# the pixel lies inside the instance's box and alpha only where the power
-# lies in [cutoff, 0] (the kernels' own cutoff and box, which leave out only
-# pairs whose alpha is 0; ``seq_pair_counts`` counts them): the power, 2 sub
-# (dx, dy), 6 mul + 1 add + 1 mul + 1 sub.
-SEQ_POWER_OPS = 11
+# one; the comparisons and selects are not counted. The four blend kernels
+# (K1 and K4 forward, K2 and K5 backward) need, of the (instance, pixel)
+# pairs that a pixel must consider (forward: those it visits while not done;
+# backward: those before its own n_contrib), the power only where the pixel
+# lies inside the instance's box and alpha only where the power lies in
+# [cutoff, 0] (the kernels' own cutoff and box, which leave out only pairs
+# whose alpha is 0; ``blend_seq.blend_pair_counts`` counts them). The power
+# by what each of its terms depends on, (per such pair, per (instance,
+# pixel column) and per (instance, pixel row) of a tile that holds one):
+# "seq" (K1, K2), -0.5*(A*(dx*dx) + C*(dy*dy)) - B*(dx*dy): dx, dx*dx,
+# A*(dx*dx) per column (3), the same in dy per row (3), dx*dy, B*(dx*dy),
+# the add, *-0.5 and the sub per pair (5); "pallas" (K4, K5),
+# -0.5*((A*dx)*dx + (C*dy)*dy) - (B*dx)*dy: dx, A*dx, (A*dx)*dx, B*dx per
+# column (4), dy, C*dy, (C*dy)*dy per row (3), the add, *-0.5, (B*dx)*dy
+# and the sub per pair (4).
+POWER_OPS = {"seq": (5, 3, 3), "pallas": (4, 4, 3)}
 # alpha: expf, 1 mul + 1 min.
-SEQ_ALPHA_OPS = 3
+ALPHA_OPS = 3
 # Per instance of a tile up to the last one that a pixel needs: the cutoff
 # (div, logf, abs, add, mul, sub) and the box (A*C, det 2, B^2 and 0.998 AC
 # 2, r^2 2, two half-widths of 5, 4 edges).
-SEQ_STAGE_OPS = 6 + 21
+STAGE_OPS = 6 + 21
 # K1, per blended pair on top: 1 mul + 1 sub (T), 3 mul + 3 add (color).
 K1_BLEND_OPS_PER_PAIR = 8
 # K2, per blended pair on top: 3 mul + 2 add (cdot), 1 mul + 1 sub (T),
@@ -145,16 +152,13 @@ PALLAS_PROBE = rast.make_settings(
     "pallas", capacity=1 << 21, max_per_tile=4096, fast_sort=True,
     tight_culling=True, precise_cull=True)
 PALLAS_STEPS = 10
-# K4, per (instance, pixel) pair visited while the pixel was not done: 2 sub
-# (dx, dy), 6 mul + 1 add + 1 mul + 1 sub (power), expf, 1 mul + 1 min
-# (alpha).
-K4_VISIT_OPS_PER_PAIR = 14
+# K4 and K5 are also held and timed at 32x32 tiles (what a seq setting of
+# another chunk routes to them): make_settings("pallas", block_x=32,
+# block_y=32) with the same flags, sized the same way.
+PALLAS_PROBE_32 = dataclasses.replace(PALLAS_PROBE, block_x=32, block_y=32)
 # K4, per blended pair on top: 1 sub + 1 mul (T_i = T_{i-1} * (1 - a)),
 # 1 mul (w = a * T_{i-1}), 3 mul + 3 add (color).
 K4_BLEND_OPS_PER_PAIR = 9
-# K5, per pair walked up to the tile's deepest contributor while the pixel
-# was not done: K4's visit, 14.
-K5_WALK_OPS_PER_PAIR = 14
 # K5, per blended pair on top: 1 sub + 1 mul (T), 1 mul (w), 3 mul + 2 add
 # (cdot), 1 mul + 1 add (prefix), 1 sub (suffix), 4 (dalpha: T * cdot,
 # suffix + tfin_gt, div, sub), 2 mul (dpow = g * (op * dalpha)), 6 + 6
@@ -302,96 +306,43 @@ def kernel_row(name, source, replaces, err, ms, dispatch_ms, plain_ms,
             "library_ms": library_ms, "dispatch_ms": dispatch_ms}
 
 
-def flat_ops(visit_ops, blend_ops):
-    """The operation count of a blend kernel that skips nothing (K4, K5):
-    ``visit_ops`` per pair visited (walked) while the pixel was not done,
-    ``blend_ops`` more per blended pair; a ``count`` for ``fwd_parity`` and
-    ``bwd_parity``."""
+def pair_ops(kernel, blend_ops, tile, association):
+    """The operation count of a blend kernel as the function needs it
+    (``blend_seq.blend_pair_counts`` at ``tile`` (block_x, block_y), the
+    power rounded in ``association``): forward ("k1", "k4") or backward
+    ("k2", "k5"), ``blend_ops`` per blended pair; a ``count`` for
+    ``fwd_parity`` and ``bwd_parity``. Fails unless the blended pairs, and
+    the forward's visited pairs, are the plain version's."""
+    side = "fwd" if kernel in ("k1", "k4") else "bwd"
+
     def count(args, raw, pairs, blended):
-        return (pairs * visit_ops + blended * blend_ops,
-                f"visited pairs {pairs}, blended pairs {blended}")
-    return count
-
-
-def seq_pair_counts(packed, tile_start, tile_count, tiles_x, raw):
-    """The pairs K1 and K2 need, from K1's output ``raw`` (n_contrib
-    tracked) and the kernels' own cutoffs and boxes
-    (``blend_seq.stage_cutoff_box``), in chunks of instance indices,
-    vectorised over (tiles x chunk x 1024 px). A pixel visits (K1) each
-    pair up to the one that makes it done, the first after its n_contrib
-    whose a is nonzero; K2 walks each pixel's pairs before its n_contrib.
-    Of those: ``*_box``, pixel inside the instance's box; ``*_live``, power
-    in [cutoff, 0]; ``*_staged``, instances of a tile up to the last one any
-    pixel needs; ``visited``, every pair K1 visits; ``blended``."""
-    dev = packed.device
-    stage = blend_seq.stage_cutoff_box(packed)
-    num_tiles = tile_count.numel()
-    px, py = blend_plain.tile_pixel_coords(
-        tiles_x, num_tiles // tiles_x, blend_seq.BX, blend_seq.BY, dev)
-    px, py = px[:, None], py[:, None]                    # (T, 1, PIX)
-    start, count = tile_start.long(), tile_count.long()
-    last = raw[:, 4].long()[:, None]                     # n_contrib
-    done = torch.zeros((num_tiles, blend_seq.PIX), dtype=torch.bool,
-                       device=dev)
-    keys = ("k1_box", "k1_live", "k1_staged", "k2_box", "k2_live",
-            "k2_staged", "visited", "blended")
-    n = dict.fromkeys(keys, 0)
-    chunk = max(1, (1 << 24) // max(1, num_tiles * blend_seq.PIX))
-    for i0 in range(0, int(count.max()) if num_tiles else 0, chunk):
-        i = torch.arange(i0, i0 + chunk, device=dev)
-        inrange = i[None] < count[:, None]               # (T, C)
-        col = torch.where(inrange, start[:, None] + i[None], 0)
-        mx, my, ca, cbc, cc, op = packed[:6, col, None]  # (T, C, 1)
-        cut, x_lo, x_hi, y_lo, y_hi = stage[:, col, None]
-        dx = mx - px
-        dy = my - py
-        power = -0.5 * (ca * (dx * dx) + cc * (dy * dy)) - cbc * (dx * dy)
-        alpha = torch.clamp_max(op * torch.exp(power), ALPHA_MAX)
-        nonzero = ((power <= 0.0) & (alpha >= ALPHA_MIN)
-                   & inrange[..., None])                 # a > 0
-        box = ((px >= x_lo) & (px <= x_hi) & (py >= y_lo) & (py <= y_hi)
-               & inrange[..., None])
-        live = ~(power < cut) & (power <= 0.0) & inrange[..., None]
-        before = i[None, :, None] < last                 # (T, C, PIX)
-        hit = nonzero & ~before                          # makes it done
-        prior = hit.cumsum(dim=1) - hit.long()
-        visit = inrange[..., None] & ~done[:, None] & (prior == 0)
-        done |= hit.any(dim=1)
-        walk = before & inrange[..., None]
-        for key, mask in (("k1_box", visit & box), ("k1_live", visit & live),
-                          ("k1_staged", visit.any(dim=2)),
-                          ("k2_box", walk & box), ("k2_live", walk & live),
-                          ("k2_staged", walk.any(dim=2)), ("visited", visit),
-                          ("blended", nonzero & before)):
-            n[key] += int(mask.sum())
-    return n
-
-
-def seq_ops(kernel, blend_ops):
-    """The operation count of K1 (``kernel`` "k1") or K2 ("k2") as the
-    function needs it (``seq_pair_counts``), ``blend_ops`` per blended
-    pair; a ``count`` for ``fwd_parity`` and ``bwd_parity``. Fails unless
-    the blended pairs, and K1's visited pairs, are the plain version's."""
-    def count(args, raw, pairs, blended):
-        n = seq_pair_counts(*args[:4], raw)
-        check(n["blended"] == blended and (kernel == "k2"
+        n = blend_seq.blend_pair_counts(*args[:4], *tile, raw, association)
+        check(n["blended"] == blended and (side == "bwd"
                                            or n["visited"] == pairs),
               f"{kernel} pair counts {n} disagree with the plain version's "
               f"({pairs} visited or walked, {blended} blended)")
-        ops = (SEQ_POWER_OPS * n[f"{kernel}_box"]
-               + SEQ_ALPHA_OPS * n[f"{kernel}_live"]
-               + SEQ_STAGE_OPS * n[f"{kernel}_staged"] + blend_ops * blended)
-        return ops, (f"pairs needing the power {n[f'{kernel}_box']}, alpha "
-                     f"{n[f'{kernel}_live']}, blended {blended} (of "
-                     f"{pairs} {'visited' if kernel == 'k1' else 'walked'}); "
-                     f"staged instances {n[f'{kernel}_staged']}")
+        per_pair, per_col, per_row = POWER_OPS[association]
+        ops = (per_pair * n[f"{side}_box"] + per_col * n[f"{side}_cols"]
+               + per_row * n[f"{side}_rows"]
+               + ALPHA_OPS * n[f"{side}_live"]
+               + STAGE_OPS * n[f"{side}_staged"] + blend_ops * blended)
+        walk = ("visited" if side == "fwd"
+                else f"walked to each pixel's n_contrib, {n['walked']} of "
+                     f"{pairs} walked to the tile's stop")
+        return ops, (f"pairs needing the power {n[f'{side}_box']} (in "
+                     f"{n[f'{side}_cols']} instance columns, "
+                     f"{n[f'{side}_rows']} rows), alpha "
+                     f"{n[f'{side}_live']}, blended {blended} (of "
+                     f"{n['visited'] if side == 'fwd' else n['walked']} "
+                     f"{walk}); staged instances {n[f'{side}_staged']}")
     return count
 
 
 def fwd_parity(label, kernel, plain, args, pix, count_ops, plain_reps=2):
-    """A blend forward kernel (K1, K4) vs its plain version on the card:
-    ``args`` are both's arguments, the first three (packed, tile_start,
-    tile_count). The plain version's time is the mean of ``plain_reps``
+    """A blend forward kernel (K1, K4) vs its plain version on the card, bit
+    for bit (color, T and n_contrib): ``args`` are both's arguments, the
+    first three (packed, tile_start, tile_count). The plain version's time
+    is the mean of ``plain_reps``
     calls (CUDA events), or with 0 that of the parity run (host clock).
     ``count_ops(args, output, visited, blended)`` gives the bound's FP32
     operations and their account. Returns (max |d| of color and T, device
@@ -408,14 +359,12 @@ def fwd_parity(label, kernel, plain, args, pix, count_ops, plain_reps=2):
     n_inst = int(tile_count.sum())
     num_tiles = tile_count.shape[0]
     print(f"{label} parity: tiles {num_tiles}, K {packed.shape[1]}, "
-          f"instances {n_inst}, max|d| color/T {err:.3e} "
-          f"(atol {ATOL}), n_contrib agree {agree:.6f} "
-          f"(>= {CONTRIB_AGREE})")
+          f"instances {n_inst}, max|d| color/T {err:.3e}, n_contrib agree "
+          f"{agree:.6f} (gate: bit-equal)")
     check(torch.isfinite(got).all().item(), f"{label.upper()} output not "
           "finite")
-    check(err <= ATOL, f"{label.upper()} disagrees with its plain version: "
-          f"{err}")
-    check(agree >= CONTRIB_AGREE, f"n_contrib agreement {agree}")
+    check(torch.equal(got, want), f"{label.upper()} is not bit-equal to its "
+          f"plain version: max|d| {err}, n_contrib agree {agree}")
 
     ms = device_ms(lambda: kernel(*args), reps=50)
     dispatch_ms = cuda_ms(lambda: kernel(*args), reps=50)
@@ -442,23 +391,93 @@ def phase_k1_parity(params, state):
         "neuralgaussiansplatting_tpu/ops/blend_seq.py:91",
         *fwd_parity("k1", blend_seq.blend_seq_fwd,
                     blend_seq.blend_tiles_seq_reference, args,
-                    blend_seq.PIX, seq_ops("k1", K1_BLEND_OPS_PER_PAIR)))
+                    blend_seq.PIX, pair_ops("k1", K1_BLEND_OPS_PER_PAIR,
+                                            (blend_seq.BX, blend_seq.BY),
+                                            "seq")))
 
 
-def phase_k4_parity(params, state, settings):
-    """K4 vs its plain version on the card, at the bench shapes with the
-    pallas settings."""
-    packed, inst, tiles_x = k1_inputs(params, state, demo.demo_camera(W, H),
-                                      settings=settings)
-    tile = (settings.block_x, settings.block_y)
+def parity_entry(numbers, tile_count):
+    """A kernel's numbers at another workload (``fwd_parity``'s or
+    ``bwd_parity``'s) as an entry of its row."""
+    err, ms, dispatch_ms, plain_ms, t_bytes, t_ops = numbers
+    return {"instances": int(tile_count.sum()), "tiles": tile_count.numel(),
+            "max_abs_err": err, "ms": ms, "dispatch_ms": dispatch_ms,
+            "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def k4_numbers(label, packed, inst, tiles_x, tile, plain_reps=2):
+    """``fwd_parity`` of K4 at tiles of ``tile`` (block_x, block_y)."""
     args = (packed, inst.tile_start, inst.tile_count, tiles_x, *tile)
-    return kernel_row(
-        "blend_pallas_fwd", "blend_pallas_fwd.cu",
-        "neuralgaussiansplatting_tpu/ops/blend_pallas.py:260",
-        *fwd_parity("k4", blend_pallas.blend_pallas_fwd,
-                    blend_pallas.blend_tiles_pallas_reference, args,
-                    tile[0] * tile[1], flat_ops(K4_VISIT_OPS_PER_PAIR,
-                                                K4_BLEND_OPS_PER_PAIR)))
+    return fwd_parity(label, blend_pallas.blend_pallas_fwd,
+                      blend_pallas.blend_tiles_pallas_reference, args,
+                      tile[0] * tile[1],
+                      pair_ops("k4", K4_BLEND_OPS_PER_PAIR, tile, "pallas"),
+                      plain_reps=plain_reps)
+
+
+def k5_numbers(label, packed, inst, tiles_x, tile, size=(W, H),
+               plain_reps=1):
+    """``bwd_parity`` of K5 at tiles of ``tile`` (block_x, block_y)."""
+    return bwd_parity(label, blend_pallas.blend_pallas_fwd,
+                      blend_pallas.blend_pallas_bwd,
+                      blend_pallas.blend_tiles_pallas_bwd_reference, packed,
+                      inst, (tiles_x, *tile), tile,
+                      pair_ops("k5", K5_BLEND_OPS_PER_PAIR, tile, "pallas"),
+                      size=size, plain_reps=plain_reps)
+
+
+def kernel_layout(label, name, tile):
+    """Print and return the launch that K4 or K5 (``name``) takes at
+    ``tile`` (block_x, block_y) and its residency on this card, as the CUDA
+    runtime reports them (``blend_pallas.kernel_layout``)."""
+    lay = blend_pallas.kernel_layout(name, *tile)
+    print(f"{label} launch at {tile[0]}x{tile[1]}: {lay['threads']} threads "
+          f"x {lay['ctas_per_tile']} CTAs per tile, {lay['registers']} "
+          f"registers per thread, {lay['static_smem']} + "
+          f"{lay['dynamic_smem']} bytes of shared memory per CTA, "
+          f"{lay['ctas_per_sm']} resident CTAs per SM")
+    return lay
+
+
+def phase_k4_k5_parity(params, state, settings, settings_32):
+    """K4 and K5 vs their plain versions on the card, at the bench shapes
+    with the pallas settings (16x16) and with 32x32 tiles (each row's
+    ``"tile_32"``; the plain versions timed by their one parity run), with
+    each launch's layout and residency (``"layout"``). Returns the two
+    rows."""
+    rows = {}
+    for tiles in (settings, settings_32):
+        tile = (tiles.block_x, tiles.block_y)
+        layouts = {"K4": kernel_layout("k4", "blend_pallas_fwd", tile),
+                   "K5": kernel_layout("k5", "blend_pallas_bwd", tile)}
+        packed, inst, tiles_x = k1_inputs(params, state,
+                                          demo.demo_camera(W, H),
+                                          settings=tiles)
+        tile_load(f"pallas 800x800 {tile[0]}x{tile[1]}", inst.tile_count,
+                  blend_pallas.blend_pallas_fwd(
+                      packed, inst.tile_start, inst.tile_count, tiles_x,
+                      *tile))
+        if tiles is settings:
+            rows["K4"] = kernel_row(
+                "blend_pallas_fwd", "blend_pallas_fwd.cu",
+                "neuralgaussiansplatting_tpu/ops/blend_pallas.py:260",
+                *k4_numbers("k4", packed, inst, tiles_x, tile))
+            rows["K5"] = kernel_row(
+                "blend_pallas_bwd", "blend_pallas_bwd.cu",
+                "neuralgaussiansplatting_tpu/ops/blend_pallas.py:353",
+                *k5_numbers("k5", packed, inst, tiles_x, tile))
+        else:
+            rows["K4"]["tile_32"] = parity_entry(k4_numbers(
+                "k4 32x32", packed, inst, tiles_x, tile, plain_reps=0),
+                inst.tile_count)
+            rows["K5"]["tile_32"] = parity_entry(k5_numbers(
+                "k5 32x32", packed, inst, tiles_x, tile, plain_reps=0),
+                inst.tile_count)
+        for name in ("K4", "K5"):
+            entry = rows[name] if tiles is settings else rows[name]["tile_32"]
+            entry["layout"] = layouts[name]
+    return rows
 
 
 def gate_error(got, want, same_card=False):
@@ -585,23 +604,8 @@ def phase_k2_parity(params, state):
         *bwd_parity("k2", blend_seq.blend_seq_fwd, blend_seq.blend_seq_bwd,
                     blend_seq.blend_tiles_seq_bwd_reference, packed, inst,
                     (tiles_x,), (blend_seq.BX, blend_seq.BY),
-                    seq_ops("k2", K2_BLEND_OPS_PER_PAIR)))
-
-
-def phase_k5_parity(params, state, settings):
-    """K5 vs its plain version on the card, at the bench shapes with the
-    pallas settings."""
-    packed, inst, tiles_x = k1_inputs(params, state, demo.demo_camera(W, H),
-                                      settings=settings)
-    tile = (settings.block_x, settings.block_y)
-    return kernel_row(
-        "blend_pallas_bwd", "blend_pallas_bwd.cu",
-        "neuralgaussiansplatting_tpu/ops/blend_pallas.py:353",
-        *bwd_parity("k5", blend_pallas.blend_pallas_fwd,
-                    blend_pallas.blend_pallas_bwd,
-                    blend_pallas.blend_tiles_pallas_bwd_reference, packed,
-                    inst, (tiles_x, *tile), tile,
-                    flat_ops(K5_WALK_OPS_PER_PAIR, K5_BLEND_OPS_PER_PAIR)))
+                    pair_ops("k2", K2_BLEND_OPS_PER_PAIR,
+                             (blend_seq.BX, blend_seq.BY), "seq")))
 
 
 def phase_small_reference():
@@ -1207,7 +1211,29 @@ def phase_garden():
           "garden image outside the 16x16 / 32x32 tiling band gate")
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"garden: peak memory {peak:.2f} GiB")
-    return garden_seq(params, state, cam, seq)
+    rows = garden_pallas(params, state, cam, settings)
+    rows.update(garden_seq(params, state, cam, seq))
+    return rows
+
+
+def garden_pallas(params, state, cam, settings):
+    """The 16x16 pallas path at the garden shapes: a tile-load line, K4 and
+    K5 against their plain versions on one view at the gates of the bench
+    shapes (the plain versions timed by their one parity run), their device
+    times and bounds. Returns {"K4": ..., "K5": ...}: each kernel's garden
+    numbers."""
+    tile = (settings.block_x, settings.block_y)
+    packed, inst, tiles_x = k1_inputs(params, state, cam, settings=settings)
+    tile_load(f"garden {GARDEN_W}x{GARDEN_H} {tile[0]}x{tile[1]}",
+              inst.tile_count, blend_pallas.blend_pallas_fwd(
+                  packed, inst.tile_start, inst.tile_count, tiles_x, *tile))
+    return {"K4": parity_entry(k4_numbers("k4 garden", packed, inst, tiles_x,
+                                          tile, plain_reps=0),
+                               inst.tile_count),
+            "K5": parity_entry(k5_numbers("k5 garden", packed, inst, tiles_x,
+                                          tile, size=(GARDEN_W, GARDEN_H),
+                                          plain_reps=0),
+                               inst.tile_count)}
 
 
 def garden_seq(params, state, cam, settings):
@@ -1221,24 +1247,19 @@ def garden_seq(params, state, cam, settings):
     args = (packed, inst.tile_start, inst.tile_count, tiles_x)
     tile_load(f"garden {GARDEN_W}x{GARDEN_H}", inst.tile_count,
               blend_seq.blend_seq_fwd(*args))
-    rows = {}
-    for name, numbers in (
-            ("K1", fwd_parity("k1 garden", blend_seq.blend_seq_fwd,
-                              blend_seq.blend_tiles_seq_reference, args,
-                              blend_seq.PIX,
-                              seq_ops("k1", K1_BLEND_OPS_PER_PAIR),
-                              plain_reps=0)),
-            ("K2", bwd_parity("k2 garden", blend_seq.blend_seq_fwd,
-                              blend_seq.blend_seq_bwd,
-                              blend_seq.blend_tiles_seq_bwd_reference, packed,
-                              inst, (tiles_x,), (blend_seq.BX, blend_seq.BY),
-                              seq_ops("k2", K2_BLEND_OPS_PER_PAIR),
-                              size=size, plain_reps=0))):
-        err, ms, dispatch_ms, plain_ms, t_bytes, t_ops = numbers
-        rows[name] = {"instances": int(inst.tile_count.sum()),
-                      "tiles": inst.tile_count.numel(), "max_abs_err": err,
-                      "ms": ms, "dispatch_ms": dispatch_ms,
-                      "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops)}
+    tile = (blend_seq.BX, blend_seq.BY)
+    rows = {
+        "K1": parity_entry(fwd_parity(
+            "k1 garden", blend_seq.blend_seq_fwd,
+            blend_seq.blend_tiles_seq_reference, args, blend_seq.PIX,
+            pair_ops("k1", K1_BLEND_OPS_PER_PAIR, tile, "seq"),
+            plain_reps=0), inst.tile_count),
+        "K2": parity_entry(bwd_parity(
+            "k2 garden", blend_seq.blend_seq_fwd, blend_seq.blend_seq_bwd,
+            blend_seq.blend_tiles_seq_bwd_reference, packed, inst,
+            (tiles_x,), tile,
+            pair_ops("k2", K2_BLEND_OPS_PER_PAIR, tile, "seq"), size=size,
+            plain_reps=0), inst.tile_count)}
     del packed, inst
 
     bg = torch.zeros(3, device="cuda")
@@ -1786,12 +1807,13 @@ def main():
     phase_trainer()
 
     pallas = phase_pallas_serve(params, state)
-    rows["K4"] = phase_k4_parity(params, state, pallas)
-    rows["K5"] = phase_k5_parity(params, state, pallas)
+    pallas_32, _ = sized_settings(PALLAS_PROBE_32, params, state.alive,
+                                  demo.demo_camera(W, H))
+    rows.update(phase_k4_k5_parity(params, state, pallas, pallas_32))
     rows["K4"]["launches"], rows["K5"]["launches"] = phase_pallas_train(
         params, state)
     garden = phase_garden()
-    for name in ("K1", "K2"):
+    for name in ("K1", "K2", "K4", "K5"):
         rows[name]["garden"] = garden[name]
 
     nparams, nstate = neural_scene()

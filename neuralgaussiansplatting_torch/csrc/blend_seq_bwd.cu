@@ -33,14 +33,14 @@
 // the caller's zeros. The library is built with --fmad=false and uses the
 // precise expf, as K1 is.
 //
-// What bounds it on an H100: arithmetic, as the function needs it: per
-// pair before the pixel's own n_contrib, the power (11 FP32 operations)
-// where the pixel lies inside the instance's box and an expf and 2 more
-// where the power is at or above the cutoff; ~47 more per blended pair;
-// the cutoff and box once per instance; against 36 bytes of attributes and
-// 36 bytes of gradient rows per slot (chip_smoke.py works the bound out
-// from each run's data). The design (PERF.md has the split of the time
-// and the variants tried):
+// What bounds it on an H100: arithmetic, as the function needs it: per pair
+// before the pixel's own n_contrib, the power (5 FP32 operations, and 3 per
+// (instance, column) and 3 per (instance, row) for its terms in dx or dy alone)
+// where the pixel lies inside the instance's box and an expf and 2 more where
+// the power is at or above the cutoff; ~47 more per blended pair; the cutoff
+// and box once per instance; against 36 bytes of attributes and 36 bytes of
+// gradient rows per slot (chip_smoke.py works the bound out from each run's
+// data). The design (PERF.md has the split of the time and the variants tried):
 //
 // - One 256-thread CTA per tile, 4 pixels per thread: a 2x2 cell, each warp
 //   a compact 16x8 patch, so the lanes of a warp mostly blend or skip
@@ -76,35 +76,6 @@ namespace {
 using namespace blend_seq;
 
 constexpr int kPerThread = 4;  // a 2x2 cell: pixel q at (q % 2, q / 2)
-
-// Sum acc[0..8] over the warp. Returns the sum of row (lane >> 2) & 7 in
-// every lane, and the sum of row 8 in `row8`; the order is fixed.
-__device__ __forceinline__ float warp_rows(const float (&acc)[kRows],
-                                           int lane, float& row8) {
-  float v[4], u[2];
-  const bool b4 = lane & 16, b3 = lane & 8, b2 = lane & 4;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {  // lanes 0-15 keep rows 0-3, 16-31 rows 4-7
-    const float send = b4 ? acc[i] : acc[i + 4];
-    const float keep = b4 ? acc[i + 4] : acc[i];
-    v[i] = keep + __shfl_xor_sync(kFull, send, 16);
-  }
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const float send = b3 ? v[i] : v[i + 2];
-    const float keep = b3 ? v[i + 2] : v[i];
-    u[i] = keep + __shfl_xor_sync(kFull, send, 8);
-  }
-  float s = (b2 ? u[1] : u[0]) + __shfl_xor_sync(kFull, b2 ? u[0] : u[1], 4);
-  s = s + __shfl_xor_sync(kFull, s, 2);
-  s = s + __shfl_xor_sync(kFull, s, 1);
-  float r8 = acc[8];
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    r8 = r8 + __shfl_xor_sync(kFull, r8, off);
-  row8 = r8;
-  return s;
-}
 
 __global__ void __launch_bounds__(kThreads, 2)
 blend_seq_bwd_kernel(const int* __restrict__ tile_start,

@@ -19,16 +19,17 @@
 // is the full-precision one (no fast math).
 //
 // What bounds it on an H100: arithmetic, as the function needs it: per
-// (instance, pixel) pair that a live pixel visits, the power (11 FP32
-// operations) where the pixel lies inside the instance's box and an expf
-// and 2 more where the power is at or above the cutoff; 8 more per blended
-// pair; the cutoff and box once per instance; against 36 bytes of
-// attributes per instance shared by 1024 pixels (chip_smoke.py works the
-// bound out from each run's data). What held the earlier design (one block
-// per tile) back was the spread of the work and the work no output uses:
-// 625 blocks at 800x800, the densest tile 3.7x the mean, each thread
-// walking 4 pixels to the end of its tile, every pair paying an expf though
-// ~3/4 of them cannot blend. So (PERF.md has the split of the time):
+// (instance, pixel) pair that a live pixel visits, the power (5 FP32
+// operations, and 3 per (instance, column) and 3 per (instance, row) for its
+// terms in dx or dy alone) where the pixel lies inside the instance's box and
+// an expf and 2 more where the power is at or above the cutoff; 8 more per
+// blended pair; the cutoff and box once per instance; against 36 bytes of
+// attributes per instance shared by 1024 pixels (chip_smoke.py works the bound
+// out from each run's data). What held the earlier design (one block per tile)
+// back was the spread of the work and the work no output uses: 625 blocks at
+// 800x800, the densest tile 3.7x the mean, each thread walking 4 pixels to the
+// end of its tile, every pair paying an expf though ~3/4 of them cannot blend.
+// So (PERF.md has the split of the time):
 //
 // - Four blocks per tile, one 16x16 quadrant each, one pixel per thread;
 //   each warp owns a compact 8x4 patch of its quadrant, so its lanes

@@ -1,6 +1,7 @@
-// The alpha-floor cutoff and box that K1 (blend_seq_fwd.cu) and K2
-// (blend_seq_bwd.cu) give each staged instance, evaluated by the same device
-// code (blend_seq_common.cuh's stage) for every column of a packed table.
+// The alpha-floor cutoff and box that K1 and K2 (blend_seq_{fwd,bwd}.cu) and
+// K4 and K5 (blend_pallas_{fwd,bwd}.cu) give each staged instance, evaluated
+// by the same device code (blend_seq_common.cuh's stage) for every column of
+// a packed table.
 // Not a kernel of the render: the card tests sweep these values against
 // ops/blend_seq.py's PyTorch versions and against the float32 alpha they
 // must bound, and chip_smoke.py counts with them the pairs the blend needs.

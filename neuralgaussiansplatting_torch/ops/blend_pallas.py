@@ -7,7 +7,11 @@ kernel K4 (``csrc/blend_pallas_fwd.cu``, replacing the TPU kernel
 ``_fwd_kernel``) and its backward kernel K5 (``csrc/blend_pallas_bwd.cu``,
 replacing ``_bwd_kernel``), with the JAX ``custom_vjp``'s contract. Both take
 any tile shape up to ``MAX_PIX`` pixels; the binning chunk is only the
-alignment of each tile's segment and changes nothing in them.
+alignment of each tile's segment and changes nothing in them. Both skip the
+pairs and instances that cannot blend by K1's and K2's exact alpha-floor
+cutoff and per-warp box (``blend_seq.alpha_floor_cutoff`` /
+``instance_box``), which hold for their association of the power
+(``blend_seq.blend_power(..., "pallas")``).
 
 ``blend_pallas_fwd`` and ``blend_pallas_bwd`` are the kernels' wrappers: on a
 CUDA tensor each launches its kernel or raises, never falling back; on a CPU
@@ -46,7 +50,8 @@ from neuralgaussiansplatting_torch.ops.blend import (
 # read and write the 9 rows directly.)
 PROWS = 9
 CHUNK = 128      # binning alignment of make_settings("pallas")
-MAX_PIX = 2048   # most pixels in a tile K4/K5 take (256 threads x 8 each)
+MAX_PIX = 2048   # most pixels in a tile K4/K5 take (K4: 8 blocks of 256
+                 # threads; K5: 256 threads x 8 pixels)
 
 launches = 0      # K4 launches since the caller last set it to 0
 bwd_launches = 0  # K5 launches since the caller last set it to 0
@@ -218,6 +223,25 @@ def blend_pallas_bwd(packed: torch.Tensor, tile_start: torch.Tensor,
                   block_y, int(track_contrib), grad.data_ptr())
     bwd_launches += 1
     return grad
+
+
+def kernel_layout(name: str, block_x: int, block_y: int) -> dict:
+    """The launch that kernel ``name`` ("blend_pallas_fwd" or
+    "blend_pallas_bwd") takes for a block_x x block_y tile, and its
+    residency on the current card, as the CUDA runtime reports them:
+    threads and CTAs per tile, registers per thread, static and dynamic
+    shared memory bytes per CTA, resident CTAs per SM. Needs the card."""
+    _tile_pix(block_x, block_y)
+    fn = getattr(_build.load(name), name + "_layout")
+    fn.argtypes = [_I, _I, ctypes.POINTER(_I)]
+    fn.restype = _I
+    info = (_I * 6)()
+    code = fn(block_x, block_y, info)
+    if code:
+        raise RuntimeError(f"{name}_layout failed with CUDA error {code}")
+    keys = ("threads", "ctas_per_tile", "registers", "static_smem",
+            "dynamic_smem", "ctas_per_sm")
+    return dict(zip(keys, info))
 
 
 def _instance_step(packed, start, i, live, px, py):

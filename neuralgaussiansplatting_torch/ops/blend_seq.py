@@ -15,7 +15,10 @@ and ``bwd_launches`` count the K1 and K2 launches. ``alpha_floor_cutoff``
 is the power cutoff below which both kernels skip a pair's ``expf``, and
 ``instance_box`` the box outside which a warp skips an instance;
 ``stage_cutoff_box`` gives both per instance, on a CUDA tensor as the
-kernels' own device code computes them (``csrc/blend_seq_stage.cu``).
+kernels' own device code computes them (``csrc/blend_seq_stage.cu``). K4 and
+K5 (``ops/blend_pallas.py``) skip by the same cutoff and box, with the power
+in their own association (``blend_power``). ``blend_pair_counts`` counts the
+pairs each of the four kernels needs, for their bounds.
 """
 
 from __future__ import annotations
@@ -47,6 +50,22 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _FWD_ARGS = (_P, _P, _P, _LL, _I, _I, _I, _P, _P)
 _BWD_ARGS = (_P, _P, _P, _LL, _P, _P, _I, _I, _I, _P, _P)
 _STAGE_ARGS = (_P, _LL, _P, _P)
+# the two float32 associations of the power: K1 and K2's ("seq") and K4 and
+# K5's, the JAX pallas kernel's ("pallas")
+ASSOCIATIONS = ("seq", "pallas")
+
+
+def blend_power(dx, dy, ca, cbc, cc, association: str = "seq"):
+    """The power -q/2 of pixel offsets (dx, dy) under conic (A, B, C), as the
+    blend kernels round it in float32: ``"seq"`` (K1, K2)
+    -0.5 * (A*(dx*dx) + C*(dy*dy)) - B*(dx*dy); ``"pallas"`` (K4, K5)
+    -0.5 * ((A*dx)*dx + (C*dy)*dy) - (B*dx)*dy."""
+    if association == "seq":
+        return -0.5 * (ca * (dx * dx) + cc * (dy * dy)) - cbc * (dx * dy)
+    if association == "pallas":
+        return -0.5 * (ca * dx * dx + cc * dy * dy) - cbc * dx * dy
+    raise ValueError(f"association must be one of {ASSOCIATIONS}, got "
+                     f"{association!r}")
 
 
 def alpha_floor_cutoff(op: torch.Tensor) -> torch.Tensor:
@@ -66,11 +85,12 @@ def alpha_floor_cutoff(op: torch.Tensor) -> torch.Tensor:
 
 def instance_box(mx, my, ca, cbc, cc, op) -> torch.Tensor:
     """Per-instance box (x_lo, x_hi, y_lo, y_hi) of the kernels' warp test
-    (float32, (4, N)): at a pixel outside it the power that K1 and K2
-    compute lies below ``alpha_floor_cutoff(op)``, so a warp whose patch
-    misses the box skips the instance. ``seq_box`` in
-    ``csrc/blend_seq_common.cuh`` computes the same and states the error
-    bound; the box is the whole plane where that bound does not hold
+    (float32, (4, N)): at a pixel outside it the power that K1, K2, K4 and
+    K5 compute (in either association of ``blend_power``) lies below
+    ``alpha_floor_cutoff(op)``, so a warp whose pixels miss the box skips
+    the instance. ``seq_box`` in ``csrc/blend_seq_common.cuh`` computes the
+    same and states the error bound in both associations; the box is the
+    whole plane where that bound does not hold
     (B^2 > 0.998 AC, det <= 0, a mean past 2^20, a NaN cutoff) and empty
     where no pair can blend (a cutoff >= 0)."""
     cut = alpha_floor_cutoff(op)
@@ -92,7 +112,7 @@ def instance_box(mx, my, ca, cbc, cc, op) -> torch.Tensor:
 
 def stage_cutoff_box(packed: torch.Tensor) -> torch.Tensor:
     """(5, K) float32: each instance's cutoff and box (x_lo, x_hi, y_lo,
-    y_hi), as K1 and K2 stage the (9, K) table. On a CUDA tensor it
+    y_hi), as K1, K2, K4 and K5 stage the (9, K) table. On a CUDA tensor it
     launches ``csrc/blend_seq_stage.cu``, which runs the kernels' own
     ``seq_cutoff`` and ``seq_box``; on a CPU tensor it returns
     ``alpha_floor_cutoff`` and ``instance_box``, their PyTorch versions.
@@ -110,6 +130,77 @@ def stage_cutoff_box(packed: torch.Tensor) -> torch.Tensor:
     _build.launch("blend_seq_stage", _STAGE_ARGS, packed.device,
                   packed.data_ptr(), packed.shape[1], out.data_ptr())
     return out
+
+
+def blend_pair_counts(packed: torch.Tensor, tile_start: torch.Tensor,
+                      tile_count: torch.Tensor, tiles_x: int, block_x: int,
+                      block_y: int, raw: torch.Tensor,
+                      association: str = "seq") -> dict:
+    """The (instance, pixel) pairs that a blend forward (K1, K4) and its
+    backward (K2, K5) need, at any tile shape, for their bounds.
+
+    ``raw`` is the forward's (T, 5, block_x * block_y) output with
+    n_contrib tracked; the cutoffs and boxes are the kernels' own
+    (``stage_cutoff_box``), the power is rounded in ``association``
+    (``blend_power``). A pixel visits (forward) each pair up to the one that
+    makes it done, the first after its n_contrib whose a is nonzero; the
+    backward walks each pixel's pairs before its own n_contrib. Of those:
+    ``*_box``, the pixel inside the instance's box (they need the power);
+    ``*_cols`` and ``*_rows``, the (instance, pixel column) and (instance,
+    pixel row) pairs of a tile with at least one ``*_box`` pair (the terms
+    of the power in dx alone, or dy alone, are needed once per column or
+    row); ``*_live``, power in [cutoff, 0] (they need alpha); ``*_staged``,
+    instances of a tile up to the last one any pixel needs. ``visited`` is
+    every pair the forward visits, ``walked`` every pair the backward walks,
+    ``blended`` the blended pairs: the first and the last equal the plain
+    versions' ``return_pairs`` counts. Runs in chunks of instance indices,
+    vectorised over (tiles x chunk x pixels), on ``packed``'s device.
+    """
+    dev = packed.device
+    stage = stage_cutoff_box(packed)
+    num_tiles = tile_count.numel()
+    pix = block_x * block_y
+    px, py = tile_pixel_coords(tiles_x, num_tiles // tiles_x, block_x,
+                               block_y, dev)
+    px, py = px[:, None], py[:, None]                    # (T, 1, PIX)
+    start, count = tile_start.long(), tile_count.long()
+    last = raw[:, 4].long()[:, None]                     # n_contrib
+    done = torch.zeros((num_tiles, pix), dtype=torch.bool, device=dev)
+    keys = ("fwd_box", "fwd_cols", "fwd_rows", "fwd_live", "fwd_staged",
+            "bwd_box", "bwd_cols", "bwd_rows", "bwd_live", "bwd_staged",
+            "visited", "walked", "blended")
+    n = dict.fromkeys(keys, 0)
+    chunk = max(1, (1 << 24) // max(1, num_tiles * pix))
+    for i0 in range(0, int(count.max()) if num_tiles else 0, chunk):
+        i = torch.arange(i0, i0 + chunk, device=dev)
+        inrange = i[None] < count[:, None]               # (T, C)
+        col = torch.where(inrange, start[:, None] + i[None], 0)
+        mx, my, ca, cbc, cc, op = packed[:6, col, None]  # (T, C, 1)
+        cut, x_lo, x_hi, y_lo, y_hi = stage[:, col, None]
+        power = blend_power(mx - px, my - py, ca, cbc, cc, association)
+        alpha = torch.clamp_max(op * torch.exp(power), ALPHA_MAX)
+        nonzero = ((power <= 0.0) & (alpha >= ALPHA_MIN)
+                   & inrange[..., None])                 # a > 0
+        box = ((px >= x_lo) & (px <= x_hi) & (py >= y_lo) & (py <= y_hi)
+               & inrange[..., None])
+        live = ~(power < cut) & (power <= 0.0) & inrange[..., None]
+        before = i[None, :, None] < last                 # (T, C, PIX)
+        hit = nonzero & ~before                          # makes it done
+        prior = hit.cumsum(dim=1) - hit.long()
+        visit = inrange[..., None] & ~done[:, None] & (prior == 0)
+        done |= hit.any(dim=1)
+        walk = before & inrange[..., None]
+        for side, need in (("fwd", visit), ("bwd", walk)):
+            grid = (need & box).view(num_tiles, chunk, block_y, block_x)
+            for key, mask in (("box", grid), ("cols", grid.any(dim=2)),
+                              ("rows", grid.any(dim=3)),
+                              ("live", need & live),
+                              ("staged", need.any(dim=2))):
+                n[f"{side}_{key}"] += int(mask.sum())
+        for key, mask in (("visited", visit), ("walked", walk),
+                          ("blended", nonzero & before)):
+            n[key] += int(mask.sum())
+    return n
 
 
 def _check_inputs(packed, tile_start, tile_count, tiles_x, *per_tile):

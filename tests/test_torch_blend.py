@@ -185,6 +185,28 @@ def test_instance_box_holds_every_pair_that_is_not_skipped():
                                                                  box]))
 
 
+def test_cutoff_and_box_hold_in_the_pallas_association():
+    """K4 and K5 skip by K1's and K2's cutoff and box, with the power in
+    their own association, -0.5*((A*dx)*dx + (C*dy)*dy) - (B*dx)*dy
+    (``blend_power(..., "pallas")``). Their alpha of a given power is the
+    same float32 expression, so the cutoff sweep holds as it stands; the
+    splat sweep holds the box with the power rounded in that association.
+    An unknown association raises."""
+    assert_cutoff_never_skips_a_blend(tseq.alpha_floor_cutoff)
+    splats = sweep_splats()
+    cut = tseq.alpha_floor_cutoff(splats[5])
+    box = tseq.instance_box(*splats)
+    assert_box_holds_every_live_pair(*splats, cut, box, association="pallas")
+    dx, dy = torch.tensor([3.0, -7.5]), torch.tensor([-1.25, 2.0])
+    ca, cbc, cc = torch.tensor([0.3, 1e-3]), torch.tensor([0.1, -2e-4]), \
+        torch.tensor([0.7, 5e-3])
+    assert torch.equal(tseq.blend_power(dx, dy, ca, cbc, cc, "pallas"),
+                       -0.5 * ((ca * dx) * dx + (cc * dy) * dy)
+                       - (cbc * dx) * dy)
+    with pytest.raises(ValueError, match="association"):
+        tseq.blend_power(dx, dy, ca, cbc, cc, "xla")
+
+
 def test_stage_cutoff_box_validates_its_table():
     with pytest.raises(ValueError, match="float32"):
         tseq.stage_cutoff_box(torch.zeros((8, 4)))

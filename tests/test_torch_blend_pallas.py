@@ -23,6 +23,7 @@ import torch
 
 from neuralgaussiansplatting_tpu.ops import blend_pallas as jbp
 from neuralgaussiansplatting_torch.ops import blend_pallas as tbp
+from neuralgaussiansplatting_torch.ops import blend_seq as tseq
 
 from torch_parity import port_stage_inputs
 
@@ -157,6 +158,40 @@ def test_k5_stops_at_the_deepest_contributor():
     _, visited, blended_fwd = tbp.blend_tiles_pallas_reference(
         packed, *args, t, 16, 16, return_pairs=True)
     assert (visited, blended_fwd) == (walked_off, blended)
+
+
+@pytest.mark.parametrize("block, chunk", [(16, 8), (32, 128), (8, 16)])
+def test_pair_counter_agrees_with_the_plain_versions(block, chunk):
+    """``blend_seq.blend_pair_counts``, the one counter behind the bounds of
+    K1, K2, K4 and K5: its visited and blended pairs are the plain K4's
+    ``return_pairs`` counts (and the plain K5's blended pairs) at 16x16,
+    32x32 and 8x8, and at 32x32 in K1's association the plain K1's. Each
+    pixel walks (backward) exactly its n_contrib pairs; the pairs that need
+    alpha lie inside the box, and the blended pairs among them; the box
+    pairs lie in the counted (instance, column) and (instance, row) pairs."""
+    inst, packed, t = _inputs("default", block, chunk)
+    args = (packed, inst.tile_start, inst.tile_count, t)
+    raw, visited, blended = tbp.blend_tiles_pallas_reference(
+        *args, block, block, return_pairs=True)
+    cot = torch.ones_like(raw)
+    _, walked_flat, blended_bwd = tbp.blend_tiles_pallas_bwd_reference(
+        *args[:3], raw, cot, t, block, block, return_pairs=True)
+    n = tseq.blend_pair_counts(*args, block, block, raw, "pallas")
+    assert (n["visited"], n["blended"]) == (visited, blended)
+    assert blended_bwd == blended > 0
+    assert n["walked"] == int(raw[:, 4].sum()) <= walked_flat
+    for d in ("fwd", "bwd"):
+        assert n["blended"] <= n[f"{d}_live"] <= n[f"{d}_box"]
+        assert 0 < n[f"{d}_staged"] <= int(inst.tile_count.sum())
+        for lines in ("cols", "rows"):  # block pixels to a column or row
+            assert 0 < n[f"{d}_{lines}"] <= n[f"{d}_box"]
+            assert n[f"{d}_box"] <= n[f"{d}_{lines}"] * block
+    assert n["fwd_box"] <= n["visited"] and n["bwd_box"] <= n["walked"]
+    if block == 32:
+        raw1, visited1, blended1 = tseq.blend_tiles_seq_reference(
+            *args, return_pairs=True)
+        n1 = tseq.blend_pair_counts(*args, 32, 32, raw1, "seq")
+        assert (n1["visited"], n1["blended"]) == (visited1, blended1)
 
 
 def test_k4_k5_wrappers_validate_inputs():

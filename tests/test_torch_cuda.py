@@ -134,15 +134,17 @@ def sweep_splats(n=6000, seed=5):
                       cov[0, 0] / det, op)]
 
 
-def assert_box_holds_every_live_pair(mx, my, ca, cbc, cc, op, cut, box):
+def assert_box_holds_every_live_pair(mx, my, ca, cbc, cc, op, cut, box,
+                                     association="seq"):
     """A warp whose patch misses an instance's box skips the instance;
     that is exact only if every pixel outside the box computes (in
-    float32, in the kernels' operation order, on the tensors' device) a
-    power below the cutoff. On the integer pixels just outside each edge
-    of ``box`` (4, N), over every row (column) the ellipse spans, the power
-    lies below ``cut``. The box is finite for most splats, and empty only
-    where op < 1/255, so that no pair blends; most pairs at the mean are
-    live."""
+    float32, in the kernels' operation order: ``association`` "seq" for K1
+    and K2, "pallas" for K4 and K5, as ``blend_seq.blend_power`` rounds it,
+    on the tensors' device) a power below the cutoff. On the integer pixels
+    just outside each edge of ``box`` (4, N), over every row (column) the
+    ellipse spans, the power lies below ``cut``. The box is finite for most
+    splats, and empty only where op < 1/255, so that no pair blends; most
+    pairs at the mean are live."""
     finite = torch.isfinite(box).all(dim=0)
     empty = box[0] > box[1]
     assert (finite | empty).float().mean() > 0.8
@@ -161,17 +163,15 @@ def assert_box_holds_every_live_pair(mx, my, ca, cbc, cc, op, cut, box):
         p_axis = edges[:, :, None].expand(-1, -1, span.numel())
         p_other = other[:, None, :].expand(-1, edges.shape[1], -1)
         px, py = (p_axis, p_other) if axis == 0 else (p_other, p_axis)
-        dx = mx[i, None, None] - px
-        dy = my[i, None, None] - py
-        power = (-0.5 * (ca[i, None, None] * (dx * dx)
-                         + cc[i, None, None] * (dy * dy))
-                 - cbc[i, None, None] * (dx * dy))
+        power = blend_seq.blend_power(
+            mx[i, None, None] - px, my[i, None, None] - py,
+            ca[i, None, None], cbc[i, None, None], cc[i, None, None],
+            association)
         below = power < cut[i, None, None]
         assert below[outside].all(), axis
-    dx0 = mx[i] - torch.round(mx[i])
-    dy0 = my[i] - torch.round(my[i])
-    power = -0.5 * (ca[i] * (dx0 * dx0) + cc[i] * (dy0 * dy0)) \
-        - cbc[i] * (dx0 * dy0)
+    power = blend_seq.blend_power(mx[i] - torch.round(mx[i]),
+                                  my[i] - torch.round(my[i]), ca[i], cbc[i],
+                                  cc[i], association)
     assert (power >= cut[i]).float().mean() > 0.5
 
 
@@ -184,13 +184,14 @@ def _stage_on_gpu(mx, my, ca, cbc, cc, op):
 
 @pytest.mark.cuda
 def test_stage_cutoff_box_is_exact_on_gpu():
-    """The cutoff and box that K1 and K2 stage (``seq_cutoff``/``seq_box``
-    of csrc/blend_seq_common.cuh, through csrc/blend_seq_stage.cu): the
-    opacity sweep never skips a pair whose float32 alpha on the card
-    reaches 1/255, the splat sweep's boxes hold every live pair, and both
-    agree with their PyTorch versions in ops/blend_seq.py (the CPU tests'
-    subject) to far below the margins: 2^-18 (1 + |ln|) of the cutoff, 1/64
-    px plus 2^-18 of a box edge."""
+    """The cutoff and box that K1, K2, K4 and K5 stage (``seq_cutoff``/
+    ``seq_box`` and ``stage_batch`` of csrc/blend_seq_common.cuh, through
+    csrc/blend_seq_stage.cu): the opacity sweep never skips a pair whose
+    float32 alpha on the card reaches 1/255, the splat sweep's boxes hold
+    every live pair with the power rounded on the card in K1/K2's and in
+    K4/K5's association, and both agree with their PyTorch versions in
+    ops/blend_seq.py (the CPU tests' subject) to far below the margins:
+    2^-18 (1 + |ln|) of the cutoff, 1/64 px plus 2^-18 of a box edge."""
     _need_gpu()
     zeros = lambda n: torch.zeros(n)
 
@@ -207,7 +208,9 @@ def test_stage_cutoff_box_is_exact_on_gpu():
     splats = sweep_splats()
     staged = _stage_on_gpu(*splats)
     cut, box = staged[0], staged[1:]
-    assert_box_holds_every_live_pair(*(v.cuda() for v in splats), cut, box)
+    for association in blend_seq.ASSOCIATIONS:
+        assert_box_holds_every_live_pair(*(v.cuda() for v in splats), cut,
+                                         box, association)
     want = blend_seq.instance_box(*splats)
     box = box.cpu()
     assert torch.equal(torch.isinf(box), torch.isinf(want))
@@ -216,21 +219,23 @@ def test_stage_cutoff_box_is_exact_on_gpu():
             <= 1 / 64 + 2.0 ** -18 * want[fin].abs()).all()
 
 
-def _bench_like_inputs(n, w, h, device="cuda", block=32, chunk=128):
+def _bench_like_inputs(n, w, h, device="cuda", block=32, chunk=128,
+                       block_y=None):
     """Preprocess -> bin -> pack of the demo cloud, as ``rasterize`` runs
     them: K1's and K2's inputs at 32x32 tiles with chunk 128, K4's and
-    K5's at any ``block`` and ``chunk``."""
+    K5's at any ``block`` x ``block_y`` (default square) and ``chunk``."""
+    block_y = block_y or block
     params, state, cam = demo.demo_scene(n=n, w=w, h=h, sh_degree=3,
                                          device=device)
-    tiles_x, tiles_y = (w + block - 1) // block, (h + block - 1) // block
+    tiles_x, tiles_y = (w + block - 1) // block, (h + block_y - 1) // block_y
     pre = pp.preprocess_gaussians(
         params.xyz, gm.get_scaling(params), gm.get_rotation(params),
         gm.get_opacity(params, state.alive), gm.get_features(params), 3,
-        cam, block, block, tight=True)
+        cam, block, block_y, tight=True)
     inst = binning.bin_gaussians(pre, tiles_x, tiles_y, SETTINGS.capacity,
                                  SETTINGS.max_per_tile, chunk, pack_keys=True,
                                  precise_cull=True, block_x=block,
-                                 block_y=block, width=w, height=h)
+                                 block_y=block_y, width=w, height=h)
     packed = blend_pallas.pack_gather(blend_pallas.pack_instance_attrs_t(
         pre.means2d, pre.conic, pre.opacity, pre.rgb), inst.gid)
     return packed, inst, tiles_x
@@ -335,16 +340,17 @@ def test_k2_matches_plain_version_on_gpu():
     assert not got[:, ~inst.valid].any()
 
 
-def _synthetic_tiles(counts, tiles_x, make, seed=0):
-    """A (9, K) packed table whose tile t holds ``counts[t]`` instances from
-    ``make(n, x0, y0, gen)`` (9 rows; x0, y0 the tile's corner), each tile's
-    segment 128-aligned as binning lays it out; with tile_start,
-    tile_count."""
+def _synthetic_tiles(counts, tiles_x, make, seed=0, block=32):
+    """A (9, K) packed table whose tile t of ``block`` x ``block`` pixels
+    holds ``counts[t]`` instances from ``make(n, x0, y0, gen, block)`` (9
+    rows; x0, y0 the tile's corner), each tile's segment 128-aligned as
+    binning lays it out; with tile_start, tile_count."""
     gen = torch.Generator().manual_seed(seed)
     starts, cols, k = [], [], 0
     for t, n in enumerate(counts):
         starts.append(k)
-        cols.append(make(n, 32.0 * (t % tiles_x), 32.0 * (t // tiles_x), gen))
+        cols.append(make(n, block * float(t % tiles_x),
+                         block * float(t // tiles_x), gen, block))
         k += max(128, -(-n // 128) * 128)
     packed = torch.zeros((9, k))
     for s, c in zip(starts, cols):
@@ -357,9 +363,11 @@ def _uniform(gen, n, lo, hi):
     return lo + (hi - lo) * torch.rand(n, generator=gen)
 
 
-def _faint(n, x0, y0, gen):
-    """Wide splats of opacity 0.9/255-1.3/255 over the tile: alpha near the
-    floor, so few pairs blend and no pixel finishes."""
+def _faint(n, x0, y0, gen, block=32):
+    """Wide splats of opacity 0.9/255-1.3/255 over the tile, their means
+    within 8 px of a 32x32 square from its corner (whatever ``block``):
+    alpha near the floor, so few pairs blend and no pixel finishes."""
+    del block
     return torch.stack([
         x0 + _uniform(gen, n, -8, 40), y0 + _uniform(gen, n, -8, 40),
         _uniform(gen, n, 5e-4, 3e-3), _uniform(gen, n, -3e-4, 3e-4),
@@ -367,17 +375,17 @@ def _faint(n, x0, y0, gen):
         *torch.rand((3, n), generator=gen)])
 
 
-def _opaque(n, x0, y0, gen):
+def _opaque(n, x0, y0, gen, block=32):
     """Wide splats of opacity 0.95-0.99: every pixel is done within the
     first few instances."""
     return torch.stack([
-        x0 + _uniform(gen, n, 0, 32), y0 + _uniform(gen, n, 0, 32),
+        x0 + _uniform(gen, n, 0, block), y0 + _uniform(gen, n, 0, block),
         _uniform(gen, n, 1e-4, 1e-3), torch.zeros(n),
         _uniform(gen, n, 1e-4, 1e-3), _uniform(gen, n, 0.95, 0.99),
         *torch.rand((3, n), generator=gen)])
 
 
-def _threshold(n, x0, y0, gen):
+def _threshold(n, x0, y0, gen, block=32):
     """Instances whose op * exp(power) lies at 1/255 to within a few ulps
     on some pixels of the tile: the first eighth flat (conic 0, power -0,
     op = 1/255 moved by -4..4 ulps), the rest far to the left with A set so
@@ -391,15 +399,15 @@ def _threshold(n, x0, y0, gen):
     ulps = torch.arange(flat, dtype=torch.int32) % 9 - 4
     op[:flat] = (torch.full((flat,), 1 / 255).view(torch.int32)
                  + ulps).view(torch.float32)
-    a = -2 * ln / (dist + 16) ** 2
+    a = -2 * ln / (dist + block / 2) ** 2
     a[:flat] = 0.0
     return torch.stack([
-        x0 - dist, y0 + _uniform(gen, n, 0, 32), a, torch.zeros(n),
+        x0 - dist, y0 + _uniform(gen, n, 0, block), a, torch.zeros(n),
         torch.where(torch.arange(n) < flat, 0.0, 1e-7), op,
         *torch.rand((3, n), generator=gen)])
 
 
-def _needles(n, x0, y0, gen):
+def _needles(n, x0, y0, gen, block=32):
     """Thin splats (0.3-1 px across, 20-200 px long) at every angle, up to
     B^2 = 0.9995 AC, opacity 0.3-0.99: the per-warp box test's edges and
     its guard against ill-conditioned conics."""
@@ -412,15 +420,22 @@ def _needles(n, x0, y0, gen):
     xy = c * s * (s1 ** 2 - s2 ** 2)
     det = xx * yy - xy * xy
     return torch.stack([
-        x0 + _uniform(gen, n, -16, 48), y0 + _uniform(gen, n, -16, 48),
+        x0 + _uniform(gen, n, -block / 2, block * 3 / 2),
+        y0 + _uniform(gen, n, -block / 2, block * 3 / 2),
         yy / det, -xy / det, xx / det, _uniform(gen, n, 0.3, 0.99),
         *torch.rand((3, n), generator=gen)])
 
 
-def _adversarial_case(case):
-    """(packed, tile_start, tile_count, tiles_x, track_contrib)."""
+ADVERSARIAL = ["crowded", "contrib_off", "done_early", "threshold",
+               "empty_tiles", "needles", "grid_25x19"]
+
+
+def _adversarial_case(case, block=32):
+    """(packed, tile_start, tile_count, tiles_x, track_contrib) with tiles
+    of ``block`` x ``block`` pixels."""
     if case == "grid_25x19":
-        packed, inst, tiles_x = _bench_like_inputs(20_000, 800, 600)
+        packed, inst, tiles_x = _bench_like_inputs(
+            20_000, 25 * block, 19 * block, block=block)
         assert inst.tile_count.numel() == 25 * 19
         return packed, inst.tile_start, inst.tile_count, tiles_x, True
     make, counts, tiles_x = {
@@ -431,14 +446,26 @@ def _adversarial_case(case):
         "empty_tiles": (_faint, [0, 200, 0, 0, 150, 0], 3),
         "needles": (_needles, [2000, 600, 600, 3000], 2),
     }[case]
-    return (*_synthetic_tiles(counts, tiles_x, make), tiles_x,
+    return (*_synthetic_tiles(counts, tiles_x, make, block=block), tiles_x,
             case != "contrib_off")
 
 
+def _assert_adversarial_case(case, raw, count, track):
+    """What each adversarial case must show in the forward's output."""
+    stop = count if not track else torch.minimum(
+        count, raw[:, 4].amax(dim=1).to(torch.int32))
+    if case == "crowded":
+        assert (raw[0, 3] > 1e-3).all() and int(stop[0]) > 3000
+    if case == "done_early":
+        # T freezes below 1e-4 / (1 - 0.99) once a pixel is done
+        assert (raw[:, 3] < 0.01).all() and int(stop.max()) < 128
+    if case == "empty_tiles":
+        assert torch.equal(raw[count == 0, 3], torch.ones_like(
+            raw[count == 0, 3])) and not raw[count == 0, :3].any()
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["crowded", "contrib_off", "done_early",
-                                  "threshold", "empty_tiles", "needles",
-                                  "grid_25x19"])
+@pytest.mark.parametrize("case", ADVERSARIAL)
 def test_k1_k2_adversarial_tiles_on_gpu(case):
     """K1 bit-equal to its plain version (color, T and n_contrib on every
     pixel) and K2 within 1e-5 of each row's scale and the JAX gate, two K2
@@ -456,16 +483,7 @@ def test_k1_k2_adversarial_tiles_on_gpu(case):
     torch.cuda.synchronize()
     want = blend_seq.blend_tiles_seq_reference(*args)
     assert torch.equal(raw, want)
-    stop = count if not track else torch.minimum(
-        count, raw[:, 4].amax(dim=1).to(torch.int32))
-    if case == "crowded":
-        assert (raw[0, 3] > 1e-3).all() and int(stop[0]) > 3000
-    if case == "done_early":
-        # T freezes below 1e-4 / (1 - 0.99) once a pixel is done
-        assert (raw[:, 3] < 0.01).all() and int(stop.max()) < 128
-    if case == "empty_tiles":
-        assert torch.equal(raw[count == 0, 3], torch.ones_like(
-            raw[count == 0, 3])) and not raw[count == 0, :3].any()
+    _assert_adversarial_case(case, raw, count, track)
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     cot = torch.randn(raw.shape, generator=gen, device="cuda")
@@ -481,30 +499,40 @@ def test_k1_k2_adversarial_tiles_on_gpu(case):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("block, chunk", [(16, 128), (32, 64)])
-def test_k4_k5_match_plain_versions_on_gpu(block, chunk):
+@pytest.mark.parametrize("block_x, block_y, chunk, size", [
+    (16, 16, 128, 256), (32, 32, 64, 256), (8, 8, 128, 256),
+    (32, 16, 128, 256), (48, 40, 128, 256), (12, 12, 64, 256),
+    (20, 20, 128, 256), (24, 24, 128, 256), (16, 12, 64, 256),
+    (1, 1, 8, 48)],
+    ids=["16-128", "32-64", "8x8-128", "32x16-128", "48x40-128",
+         "12x12-64", "20x20-128", "24x24-128", "16x12-64", "1x1-8"])
+def test_k4_k5_match_plain_versions_on_gpu(block_x, block_y, chunk, size):
     """K4 and K5 vs their plain versions on the same card and inputs
-    (256x256, 20k Gaussians): K4 at K1's gate (atol 5e-5, n_contrib equal
-    on >= 99.9 %), K5 at the JAX gate and within 1e-5 of each row's scale.
-    Two K5 launches agree bit for bit."""
+    (``size`` squared, 20k Gaussians): 16x16, 32x32 chunk 64 as a routed
+    seq setting runs, 8x8 and 32x16 (warp patches), 48x40 (more warps than
+    K5's patches allow: K5's row-major layout at 8 pixels per thread), 24x24
+    (K4's cells in two blocks, K5 row-major at 4 pixels per thread), 20x20
+    (K5 row-major at 2), 12x12, 16x12 and 1x1 (no patches: K4's and K5's
+    row-major layouts). K4 bit-equal (color, T and n_contrib), K5 at the
+    JAX gate and within 1e-5 of each row's scale. Two K5 launches agree bit
+    for bit."""
     _need_gpu()
-    packed, inst, tiles_x = _bench_like_inputs(20_000, 256, 256, block=block,
-                                               chunk=chunk)
+    packed, inst, tiles_x = _bench_like_inputs(
+        20_000, size, size, block=block_x, chunk=chunk, block_y=block_y)
     args = (packed, inst.tile_start, inst.tile_count, tiles_x)
     fwd, bwd = blend_pallas.launches, blend_pallas.bwd_launches
-    raw = blend_pallas.blend_pallas_fwd(*args, block, block)
+    raw = blend_pallas.blend_pallas_fwd(*args, block_x, block_y)
     torch.cuda.synchronize()
-    want = blend_pallas.blend_tiles_pallas_reference(*args, block, block)
-    assert (raw[:, :4] - want[:, :4]).abs().max().item() <= 5e-5
-    assert (raw[:, 4] == want[:, 4]).float().mean().item() >= 0.999
-    off = blend_pallas.blend_pallas_fwd(*args, block, block,
+    want = blend_pallas.blend_tiles_pallas_reference(*args, block_x, block_y)
+    assert torch.equal(raw, want)
+    off = blend_pallas.blend_pallas_fwd(*args, block_x, block_y,
                                         track_contrib=False)
     assert torch.equal(off[:, :4], raw[:, :4]) and not off[:, 4].any()
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     cot = torch.randn(raw.shape, generator=gen, device="cuda")
     bwd_args = (packed, inst.tile_start, inst.tile_count, raw, cot, tiles_x,
-                block, block)
+                block_x, block_y)
     got = blend_pallas.blend_pallas_bwd(*bwd_args)
     again = blend_pallas.blend_pallas_bwd(*bwd_args)
     torch.cuda.synchronize()
@@ -513,9 +541,48 @@ def test_k4_k5_match_plain_versions_on_gpu(block, chunk):
     assert torch.equal(got, again)
     want = blend_pallas.blend_tiles_pallas_bwd_reference(*bwd_args)
     worst = _assert_jax_gate(got, want, same_card_rel=1e-5)
-    print(f"K5 vs plain at {block}x{block}: max error / row scale "
+    print(f"K5 vs plain at {block_x}x{block_y}: max error / row scale "
           f"{worst:.3e}")
     assert not got[:, ~inst.valid].any()
+    # without n_contrib K5 walks every pixel to tile_count: the same sums
+    off_args = (*bwd_args[:3], off, *bwd_args[4:], False)
+    got_off = blend_pallas.blend_pallas_bwd(*off_args)
+    want_off = blend_pallas.blend_tiles_pallas_bwd_reference(*off_args)
+    _assert_jax_gate(got_off, want_off, same_card_rel=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block", [16, 32])
+@pytest.mark.parametrize("case", ADVERSARIAL)
+def test_k4_k5_adversarial_tiles_on_gpu(case, block):
+    """K4 bit-equal to its plain version (color, T and n_contrib on every
+    pixel) and K5 within 1e-5 of each row's scale and the JAX gate, two K5
+    launches bit-equal, on K1/K2's adversarial tile sets at 16x16 and 32x32
+    tiles: a tile crowded to 4096 faint instances, the same with
+    track_contrib off (K5 walks to tile_count), tiles done within the first
+    batch, op * exp(power) within a few ulps of 1/255, empty tiles,
+    needle-thin splats along the box test's edges, and a 25x19 grid of
+    binned demo tiles."""
+    _need_gpu()
+    packed, start, count, tiles_x, track = _adversarial_case(case, block)
+    args = (packed, start, count, tiles_x, block, block, track)
+    raw = blend_pallas.blend_pallas_fwd(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(raw, blend_pallas.blend_tiles_pallas_reference(*args))
+    _assert_adversarial_case(case, raw, count, track)
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    cot = torch.randn(raw.shape, generator=gen, device="cuda")
+    bwd_args = (packed, start, count, raw, cot, tiles_x, block, block, track)
+    got = blend_pallas.blend_pallas_bwd(*bwd_args)
+    again = blend_pallas.blend_pallas_bwd(*bwd_args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    want = blend_pallas.blend_tiles_pallas_bwd_reference(*bwd_args)
+    worst = _assert_jax_gate(got, want, same_card_rel=1e-5)
+    print(f"{case} at {block}x{block}: K5 vs plain max error / row scale "
+          f"{worst:.3e}")
+    assert want.abs().amax() > 0
 
 
 @pytest.mark.cuda
