@@ -137,12 +137,11 @@ TILE_CAPACITY = 1 << 19     # z-buffer tile instances
 ORACLE_CAPACITY = 1 << 21   # the per-pixel sort oracle's pixel instances
 NEURAL_STEPS = 10
 # K3, per (instance, pixel) pair where the instance's rect covers the pixel
-# (what a per-pixel argmin over rects needs; the kernel's rect test of the
-# pairs it does not cover is its own cost): 3 compares, 1 and, 1 or
-# (nearer, or as near with a lower id), 2 selects. These are 32-bit integer
-# and float compare/logic/select operations; the data sheet lists no INT32
-# rate, so the bound takes its FP32 rate, which no 32-bit ALU operation
-# beats: the bound stays a lower limit.
+# (what a per-pixel argmin over rects needs, and what the kernel walks):
+# 3 compares, 1 and, 1 or (nearer, or as near with a lower id), 2 selects.
+# These are 32-bit integer and float compare/logic/select operations; the
+# data sheet lists no INT32 rate, so the bound takes its FP32 rate, which
+# no 32-bit ALU operation beats: the bound stays a lower limit.
 K3_OPS_PER_PAIR = 7
 # The pallas path at the bench width: make_settings("pallas") (16x16 tiles,
 # chunk 128) with the bench flags; capacity and packed_capacity are sized
@@ -192,6 +191,16 @@ K6_F = exp_decode_proto.F
 # (reps + 1) * (iters + 1) times in its chain
 K6_TOOL_LAUNCHES = len(K6_WORKLOADS) * (
     1 + (exp_decode_proto.REPS + 1) * (exp_decode_proto.ITERS + 1))
+# K6's wrapper host cost is timed part by part at the 800p workload (host
+# clock over HOST_REPS calls, median of HOST_ROUNDS), and K6 is chained
+# against repeat_interleave there in CHAIN_TURNS alternating turns of
+# CHAIN_ITERS steps (best of CHAIN_REPS), longer than the decode tool's
+# chain of 4 steps, best of 2.
+HOST_REPS, HOST_ROUNDS = 200, 7
+CHAIN_TURNS, CHAIN_ITERS, CHAIN_REPS = 3, 20, 5
+# K7's p6_transpose against x.t().contiguous(): device time per launch in
+# this many alternating turns of 50 launches each
+K7_TURNS = 5
 # K7: each probe reads x (16, 128) float32 once and writes its output once;
 # its few float adds are nothing beside that.
 K7_PROBES = exp_mosaic_probe.PROBES
@@ -1383,9 +1392,11 @@ def phase_k3_parity(params, state):
     t_ops = ops / FP32_OPS_PER_S * 1e3
     print(f"k3 timing: {ms:.4f} ms/launch (device time, 50 launches), "
           f"{dispatch_ms:.4f} ms/launch (CUDA events, 50 back to back), "
-          f"plain version {plain_ms:.1f} ms; {pairs} covered (instance, pixel) pairs (the "
-          f"oracle's pixel instances {int(num_inst)}; the kernel tests "
-          f"{n_inst * zbuffer_pallas.PIX}) x {K3_OPS_PER_PAIR} ops = "
+          f"plain version {plain_ms:.1f} ms; {pairs} covered (instance, "
+          f"pixel) pairs (the oracle's pixel instances {int(num_inst)}; the "
+          f"kernel walks them; a test of every pixel against every "
+          f"instance of its tile would make {n_inst * zbuffer_pallas.PIX})"
+          f" x {K3_OPS_PER_PAIR} ops = "
           f"{ops:.4g} ops at the FP32 rate "
           f"-> {t_ops:.4f} ms; {nbytes} bytes -> {t_bytes:.4f} ms")
     return kernel_row("zbuffer_fwd", "zbuffer_fwd.cu",
@@ -1703,7 +1714,93 @@ def phase_k6():
                      library_ms)
     row["library_dispatch_ms"] = library_dispatch_ms
     row["workloads"] = per
+    row["host_us"], row["chained_800p_ms"] = k6_host_and_chain()
     return row
+
+
+def host_us(fn) -> float:
+    """Host time of one ``fn`` call in microseconds: the median over
+    HOST_ROUNDS of HOST_REPS back-to-back calls (host clock; the card is
+    synchronised between rounds, and a round's launches fit the queue)."""
+    times = []
+    for _ in range(HOST_ROUNDS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(HOST_REPS):
+            fn()
+        times.append((time.perf_counter() - t0) / HOST_REPS * 1e6)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def k6_host_and_chain():
+    """K6's wrapper at the decode tool's 800p workload: its host cost part
+    by part (the checks, the status buffer and the output allocation, the
+    device and stream lookup, the ctypes call into the library, refused
+    there before any launch, and the whole call), beside one
+    ``repeat_interleave`` call's; then K6 and ``repeat_interleave`` chained
+    in alternating turns. Returns ({part: us}, {name: [ms per turn]})."""
+    n, domain = K6_WORKLOADS["800p"]
+    starts, fields = exp_decode_proto.make_case(n, domain, K6_F)
+    diffs = decode_runs.diffs_from_fields(fields)
+    args = (starts, diffs, domain, K6_F)
+    rows, lengths = exp_decode_proto.repeat_inputs(starts, fields, domain)
+    dev = starts.device
+    slots = decode_runs.slots_per_block(K6_F)
+    stream = _build.current_stream(dev)
+    fn, _ = _build._entry("decode_runs", decode_runs._ARGS)
+
+    def kernel():
+        return decode_runs.decode_runs(*args)
+
+    def library():
+        return torch.repeat_interleave(rows, lengths, dim=0,
+                                       output_size=domain)
+
+    kernel()
+    torch.cuda.synchronize()
+    parts = {
+        "checks": lambda: (decode_runs._check_inputs(*args),
+                           dev.type == "cpu", dev.type != "cuda",
+                           starts.is_contiguous() and diffs.is_contiguous()),
+        "allocation": lambda: (
+            decode_runs._state(dev, stream, 1 + domain // slots * K6_F),
+            torch.empty((domain, K6_F), dtype=torch.int32, device=dev)),
+        "device and stream": lambda: (
+            dev.index == torch.cuda.current_device(),
+            _build.current_stream(dev)),
+        "ctypes": lambda: fn(starts.data_ptr(), diffs.data_ptr(), n,
+                             diffs.shape[1], domain, 0, slots, 0, 0, 1,
+                             stream),
+        "whole call": kernel,
+        "repeat_interleave call": library}
+    cost = {name: host_us(part) for name, part in parts.items()}
+
+    def chained(fn):
+        def make_body():
+            def body(acc, _eps):
+                return acc + fn()[-1, 0].float() * 1e-30
+            return body
+        return chain_bench.chain(make_body, torch.zeros((), device=dev),
+                                 iters=CHAIN_ITERS, reps=CHAIN_REPS)
+
+    turns = {"K6": [], "repeat_interleave": []}
+    for _ in range(CHAIN_TURNS):
+        turns["K6"].append(chained(kernel))
+        turns["repeat_interleave"].append(chained(library))
+    print("k6 host cost per 800p call (host clock, median of "
+          f"{HOST_ROUNDS} x {HOST_REPS} calls): " + ", ".join(
+              f"{k} {v:.2f} us" for k, v in cost.items())
+          + " (ctypes: the library's entry refusing f = 0 before any "
+          "launch)")
+    print(f"k6 chained at 800p ({CHAIN_TURNS} alternating turns of "
+          f"{CHAIN_ITERS} steps, best of {CHAIN_REPS}; ms per step): "
+          + "; ".join(f"{k} " + " / ".join(f"{x:.4f}" for x in v)
+                      for k, v in turns.items())
+          + f"; medians K6 {statistics.median(turns['K6']):.4f}, "
+          f"repeat_interleave "
+          f"{statistics.median(turns['repeat_interleave']):.4f}")
+    return cost, turns
 
 
 def phase_k7():
@@ -1727,10 +1824,11 @@ def phase_k7():
             check(torch.equal(got, want), f"K7 probe {name} differs from its "
                   f"plain version on the {label} input: max|d| {err}")
             worst = max(worst, err)
-        ms = device_ms(lambda: kernel(arange), reps=50)
+        if name == "p6_transpose":
+            ms, library_ms = k7_transpose_turns(kernel, arange)
+        else:
+            ms, library_ms = device_ms(lambda: kernel(arange), reps=50), None
         plain_ms = cuda_ms(lambda: plain(arange), reps=5)
-        library_ms = (device_ms(lambda: arange.t().contiguous(), reps=50)
-                      if name == "p6_transpose" else None)
         dispatch_ms = cuda_ms(lambda: kernel(arange), reps=200, warmup=5)
         t_bytes = (arange.numel() + got.numel()) * 4 / HBM_BYTES_PER_S * 1e3
         probes.append({"name": name,
@@ -1749,6 +1847,24 @@ def phase_k7():
                      slowest["library_ms"])
     row["probes"] = probes
     return row
+
+
+def k7_transpose_turns(kernel, x):
+    """``p6_transpose`` and ``x.t().contiguous()``, device time per launch
+    in K7_TURNS alternating turns of 50 launches; prints both medians and
+    spreads (max - min) and returns the two medians."""
+    turns = {"p6_transpose": [], "x.t().contiguous()": []}
+    for _ in range(K7_TURNS):
+        turns["p6_transpose"].append(device_ms(lambda: kernel(x), reps=50))
+        turns["x.t().contiguous()"].append(
+            device_ms(lambda: x.t().contiguous(), reps=50))
+    med = {k: statistics.median(v) for k, v in turns.items()}
+    print(f"k7 p6_transpose vs x.t().contiguous() ({K7_TURNS} alternating "
+          "turns, device ms per launch): " + "; ".join(
+              f"{k} " + " / ".join(f"{t:.7f}" for t in v)
+              + f" (median {med[k]:.7f}, spread {max(v) - min(v):.7f})"
+              for k, v in turns.items()))
+    return med["p6_transpose"], med["x.t().contiguous()"]
 
 
 def phase_tools():

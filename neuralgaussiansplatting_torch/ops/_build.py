@@ -104,14 +104,29 @@ def _entry(name: str, argtypes: tuple):
     return fn, err
 
 
-def launch(name: str, argtypes: tuple, device: torch.device, *args):
-    """Launch kernel ``name`` on ``device``'s current stream; ``argtypes``
-    are the ctypes of ``args`` and a last ``c_void_p``, the stream. Raises
+def current_stream(device: torch.device) -> int:
+    """The raw ``cudaStream_t`` of ``device``'s current stream, as an int
+    (without the ``torch.cuda.Stream`` object that ``current_stream``
+    builds)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+def launch(name: str, argtypes: tuple, device: torch.device, *args,
+           stream: int | None = None):
+    """Launch kernel ``name`` on ``device``'s current stream (or on
+    ``stream``, a raw stream of that device); ``argtypes`` are the ctypes of
+    ``args`` and a last ``c_void_p``, the stream. Switches the current
+    device only when ``device`` is not it: a launch goes to the current
+    device, and a stream of another device is refused there. Raises
     RuntimeError if the launch is refused."""
     fn, err = _entry(name, argtypes)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
+    if stream is None:
+        stream = current_stream(device)
+    if device.index == torch.cuda.current_device():
         code = fn(*args, stream)
+    else:
+        with torch.cuda.device(device):
+            code = fn(*args, stream)
     if code:
         raise RuntimeError(f"{name} launch failed: {err(code).decode()}")
 

@@ -11,11 +11,18 @@ fields of the run that owns s (zeros before the first start).
 (``csrc/decode_runs.cu``) or raises, never falling back; on a CPU tensor it
 runs the plain PyTorch version ``decode_runs_reference``. ``launches``
 counts the K6 launches.
+
+The kernel runs in one launch, a single-pass scan whose blocks publish
+their column sums and prefixes in a status buffer. The wrapper keeps one
+such buffer per (device, stream), zeroed once when it is made or grown,
+and a sequence number per buffer that tags each call's words; so a call
+allocates only its output, and calls on two streams never share a buffer.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -25,15 +32,22 @@ from neuralgaussiansplatting_torch.ops import binning
 # the TPU kernel this replaces, as path:line from the repo root
 REPLACES = "tools/exp_decode_proto.py:36"
 DOMAIN_MULTIPLE = 4096  # the JAX kernel's output block: domains are multiples
+MAX_SLOTS = 2048        # output slots of one kernel block at most
 MAX_F = 128             # columns decoded at most (the JAX kernel's lane width)
 LANES = 32              # the kernel pads each (slots, f) column by a warp
 SMEM_BUDGET = 100 * 1024  # bytes of a block's (slots + 32, f) shared buffer
 
+SEQ_LIMIT = 2 ** 31     # a status buffer's sequence numbers stay below it
+
 launches = 0            # K6 launches since the caller last set it to 0
 
-_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _LL, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
+    ctypes.c_uint
 # the C signature of csrc/decode_runs.cu (the last pointer is the stream)
-_ARGS = (_P, _P, _LL, _LL, _LL, _I, _I, _P, _P, _P)
+_ARGS = (_P, _P, _LL, _LL, _LL, _I, _I, _P, _P, _U, _P)
+# (device index, raw stream) -> [status buffer (int64), last sequence
+# number]; the buffer is one ticket word then nb * f status words
+_states: dict = {}
 
 
 def wrap_int32(x: torch.Tensor) -> torch.Tensor:
@@ -48,11 +62,13 @@ def diffs_from_fields(fields: torch.Tensor) -> torch.Tensor:
     return wrap_int32(torch.cat([wide[:1], wide[1:] - wide[:-1]]))
 
 
+@functools.cache
 def slots_per_block(f: int) -> int:
     """Output slots one block of the kernel decodes: the largest power of
-    two up to 4096 whose padded (slots + 32, f) uint32 buffer fits
-    ``SMEM_BUDGET`` (4096 for f <= 6)."""
-    slots = DOMAIN_MULTIPLE
+    two up to ``MAX_SLOTS`` whose padded (slots + 32, f) uint32 buffer fits
+    ``SMEM_BUDGET`` (2048 for f <= 12). 2048 beat 4096 and 1024 on an H100
+    (csrc/decode_runs.cu): at f = 6 four blocks share an SM."""
+    slots = MAX_SLOTS
     while f * (slots + LANES) * 4 > SMEM_BUDGET:
         slots //= 2
     return slots
@@ -79,6 +95,19 @@ def _check_inputs(starts, diffs, domain, f):
                          f"{DOMAIN_MULTIPLE} below 2^31, got {domain!r}")
 
 
+def _state(device: torch.device, stream: int, words: int):
+    """(status buffer of at least ``words`` int64, sequence number) for one
+    call on ``stream``: the stream's buffer, made anew (zeroed, on that
+    stream) when missing, too small or out of sequence numbers."""
+    state = _states.get((device.index, stream))
+    if state is None or state[0].shape[0] < words \
+            or state[1] >= SEQ_LIMIT - 1:
+        state = [torch.zeros(words, dtype=torch.int64, device=device), 0]
+        _states[(device.index, stream)] = state
+    state[1] += 1
+    return state[0], state[1]
+
+
 def decode_runs(starts: torch.Tensor, diffs: torch.Tensor, domain: int,
                 f: int) -> torch.Tensor:
     """Per-slot rows of runs given by their starts and row differences.
@@ -95,17 +124,22 @@ def decode_runs(starts: torch.Tensor, diffs: torch.Tensor, domain: int,
     """
     global launches
     _check_inputs(starts, diffs, domain, f)
-    if not _build.on_cuda("decode_runs", (starts, diffs)):
+    device = starts.device
+    if device.type == "cpu":
         return decode_runs_reference(starts, diffs, domain, f)
+    # int32 tensors never require grad, so on_cuda's grad check is moot
+    if device.type != "cuda":
+        raise ValueError(f"no decode_runs kernel for device {device}")
+    if not (starts.is_contiguous() and diffs.is_contiguous()):
+        raise ValueError("decode_runs takes contiguous tensors")
     slots = slots_per_block(f)
-    nb = domain // slots
-    out = torch.empty((domain, f), dtype=torch.int32, device=starts.device)
-    # block windows (nb + 1), block sums and their exclusive prefix (nb, f)
-    scratch = torch.empty(nb + 1 + 2 * nb * f, dtype=torch.int32,
-                          device=starts.device)
-    _build.launch("decode_runs", _ARGS, starts.device, starts.data_ptr(),
+    stream = _build.current_stream(device)
+    state, seq = _state(device, stream, 1 + domain // slots * f)
+    out = torch.empty((domain, f), dtype=torch.int32, device=device)
+    _build.launch("decode_runs", _ARGS, device, starts.data_ptr(),
                   diffs.data_ptr(), starts.shape[0], diffs.shape[1], domain,
-                  f, slots, out.data_ptr(), scratch.data_ptr())
+                  f, slots, out.data_ptr(), state.data_ptr(), seq,
+                  stream=stream)
     launches += 1
     return out
 

@@ -6,6 +6,10 @@ footprint is a square of radius 3 / depth; the footprints are binned into
 instance per covered tile), and K3 (``csrc/zbuffer_fwd.cu``, replacing the
 TPU kernel ``_zbuf_kernel``) takes, for every pixel, the nearest instance of
 its tile whose rect covers it; equal depths go to the lower Gaussian id.
+The kernel takes that minimum over 64-bit keys, the depth's bits mapped to
+an order-preserving uint32 (``depth_key``) above the id, so that the order
+of a tile's instances changes no bit; ``depth_key`` and ``key_depth`` are
+the PyTorch versions of its encoding.
 
 ``zbuf_tiles`` is K3's wrapper: on a CUDA tensor it launches the kernel or
 raises, never falling back; on a CPU tensor it runs the plain PyTorch
@@ -133,6 +137,25 @@ def zbuf_tiles_reference(rects: torch.Tensor, depth: torch.Tensor,
     miss = dmin >= BIG
     return (torch.where(miss, -1, gwin),
             torch.where(miss, 0.0, dmin))
+
+
+def depth_key(depth: torch.Tensor) -> torch.Tensor:
+    """K3's order-preserving key of float32 depths (``depth_key`` in
+    ``csrc/zbuffer_fwd.cu``), as int64 in [0, 2^32): for depths that are not
+    NaN, a < b iff key(a) < key(b) and a == b iff key(a) == key(b), so -0.0
+    and +0.0 share the key 0x7fffffff. Non-negative floats map to bits +
+    0x7fffffff, negative ones to the bits' complement."""
+    u = depth.to(torch.float32).contiguous().view(torch.int32).long() \
+        & 0xFFFFFFFF
+    return torch.where(u >= 1 << 31, 0xFFFFFFFF - u, u + 0x7FFFFFFF)
+
+
+def key_depth(key: torch.Tensor) -> torch.Tensor:
+    """The float32 depths of ``depth_key``'s keys (+0.0 for the zero key),
+    as ``key_depth`` in ``csrc/zbuffer_fwd.cu``."""
+    u = torch.where(key >= 0x7FFFFFFF, key - 0x7FFFFFFF, 0xFFFFFFFF - key)
+    return (((u + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)).to(
+        torch.int32).view(torch.float32)
 
 
 def point_footprints(means3d: torch.Tensor, cam: CameraParams,

@@ -36,6 +36,8 @@ from neuralgaussiansplatting_torch.tools import exp_mosaic_probe as probes
 from neuralgaussiansplatting_torch.train import loop
 from neuralgaussiansplatting_torch.train import optim
 
+import k3_cases
+
 torch.set_num_threads(2)
 
 SETTINGS = rast.make_settings("seq", capacity=1 << 18, max_per_tile=4096,
@@ -651,8 +653,9 @@ def test_train_step_repeats_bit_for_bit_on_gpu(backend):
 @pytest.mark.cuda
 def test_k3_matches_plain_version_on_gpu():
     """K3 vs its plain version on the same card and inputs: a random 256²
-    scene (ids equal, depths bit-equal, and the tiled idxmap equal to the
-    per-pixel sort oracle), and two instances at equal depth on one pixel
+    scene (ids equal, depths bit-equal, also with each tile's instances
+    shuffled, and the tiled idxmap equal to the per-pixel sort oracle), and
+    two instances at equal depth on one pixel
     with ids past 2^25, where the lower id must win."""
     _need_gpu()
     params, state, cam = demo.demo_scene(n=20_000, w=256, h=256,
@@ -669,6 +672,11 @@ def test_k3_matches_plain_version_on_gpu():
     assert torch.equal(got[0], want[0])
     assert torch.equal(got[1].view(torch.int32), want[1].view(torch.int32))
     assert int(demand) <= 1 << 17 and (got[0] >= 0).any()
+    # each tile's instances in another order: the same ids and depth bits
+    shuffled = zbuffer_pallas.zbuf_tiles(*k3_cases.shuffle_tiles(args, 3))
+    assert torch.equal(shuffled[0], want[0])
+    assert torch.equal(shuffled[1].view(torch.int32),
+                       want[1].view(torch.int32))
     oracle, _, num_inst = idxmap_ops.compute_idxmap(params.xyz, cam, 1 << 20,
                                                     state.alive)
     assert int(num_inst) <= 1 << 20 and torch.equal(idx, oracle)
@@ -681,6 +689,29 @@ def test_k3_matches_plain_version_on_gpu():
         torch.zeros(1, **i32), torch.full((1,), 2, **i32), 1)
     assert gid[0, 0].item() == lo and dmin[0, 0].item() == 2.0
     assert (gid[0, 1:] == -1).all() and not dmin[0, 1:].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(k3_cases.CASES))
+def test_k3_adversarial_tiles_on_gpu(case):
+    """K3 vs its plain version on ``k3_cases``' tile sets (a shuffled
+    footprint scene of several staged batches a tile; a stack of equal
+    depths with ids past 2^25; -0.0 beside +0.0, NaN, 3e38 and inf,
+    negative depths and -inf; rects over whole tiles and across their
+    edges; 2000 instances on one tile; empty tiles), in binning's order and
+    in two shuffled orders: ids equal and depths bit-equal every time."""
+    _need_gpu()
+    make = k3_cases.CASES[case]
+    want = zbuffer_pallas.zbuf_tiles_reference(*make())
+    for seed in (None, 7, 8):
+        before = zbuffer_pallas.launches
+        gid, depth = zbuffer_pallas.zbuf_tiles(*make(seed=seed,
+                                                     device="cuda"))
+        torch.cuda.synchronize()
+        assert zbuffer_pallas.launches == before + 1
+        assert torch.equal(gid.cpu(), want[0]), seed
+        assert torch.equal(depth.cpu().view(torch.int32),
+                           want[1].view(torch.int32)), seed
 
 
 @pytest.mark.cuda
@@ -740,6 +771,9 @@ def _k6_case(kind):
         n = 20_000 if kind == "make_case" else 100_000   # Poisson(0.5) runs
         starts, fields = decode_tool.make_case(n, 1 << 17, 6)
         return starts, k6.diffs_from_fields(fields), 1 << 17, 6, fields
+    if kind == "domain_2_24":   # 4096 blocks: far more than are resident
+        starts, fields = decode_tool.make_case(2_000_000, 1 << 24, 6)
+        return starts, k6.diffs_from_fields(fields), 1 << 24, 6, fields
     if kind == "edge":
         # first start above 0, repeated starts on a block boundary, starts
         # at and past the domain, fields over the whole int32 range
@@ -762,7 +796,8 @@ def _k6_case(kind):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["make_case", "zero_length_runs", "edge",
-                                  "crowded", "empty", "f13", "f128"])
+                                  "crowded", "empty", "f13", "f128",
+                                  "domain_2_24"])
 def test_k6_matches_plain_version_on_gpu(kind):
     """K6 vs its plain version on the same card and inputs, bit for bit,
     and bit-equal across two launches; vs ``_expand_runs`` of the fields
@@ -779,6 +814,48 @@ def test_k6_matches_plain_version_on_gpu(kind):
     assert torch.equal(got, k6.decode_runs_reference(starts, diffs, domain, f))
     if fields is not None:
         assert torch.equal(got, binning._expand_runs(fields, starts, domain))
+
+
+@pytest.mark.cuda
+def test_k6_repeats_over_100_calls_on_gpu():
+    """100 back-to-back K6 calls at the decode tool's 800p workload on one
+    stream (one status buffer, 100 sequence numbers): every output
+    bit-equal to the plain version's."""
+    _need_gpu()
+    starts, fields = decode_tool.make_case(*decode_tool.WORKLOADS["800p"], 6)
+    diffs = k6.diffs_from_fields(fields)
+    domain = decode_tool.WORKLOADS["800p"][1]
+    want = k6.decode_runs_reference(starts, diffs, domain, 6)
+    outs = [k6.decode_runs(starts, diffs, domain, 6) for _ in range(100)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(out, want) for out in outs)
+
+
+@pytest.mark.cuda
+def test_k6_on_two_streams_on_gpu():
+    """K6 calls on two streams at once, each with its own inputs, ten each
+    in turns: each stream keeps its own status buffer, and every output is
+    bit-equal to its plain version's."""
+    _need_gpu()
+    domain = 1 << 22
+    cases = [decode_tool.make_case(n, domain, 6, seed=seed)
+             for n, seed in ((1_000_000, 1), (300_000, 2))]
+    args = [(s, k6.diffs_from_fields(f)) for s, f in cases]
+    wants = [k6.decode_runs_reference(s, d, domain, 6) for s, d in args]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    main = torch.cuda.current_stream()
+    outs = [[], []]
+    for st in streams:
+        st.wait_stream(main)
+    for _ in range(10):
+        for i, st in enumerate(streams):
+            with torch.cuda.stream(st):
+                outs[i].append(k6.decode_runs(*args[i], domain, 6))
+    torch.cuda.synchronize()
+    keys = {(torch.cuda.current_device(), st.cuda_stream) for st in streams}
+    assert keys <= set(k6._states)
+    for i in range(2):
+        assert all(torch.equal(out, wants[i]) for out in outs[i])
 
 
 @pytest.mark.cuda

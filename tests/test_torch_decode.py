@@ -162,12 +162,13 @@ def test_replaces_names_the_tpu_kernel():
 
 
 def test_slots_per_block_fits_the_shared_budget():
-    assert k6.slots_per_block(6) == 4096
+    assert k6.slots_per_block(6) == k6.MAX_SLOTS == 2048
     for f in (1, 6, 7, 13, 64, 128):
         slots = k6.slots_per_block(f)
         assert 4096 % slots == 0 and slots >= 32
         assert f * (slots + 32) * 4 <= k6.SMEM_BUDGET
-        assert slots == 4096 or f * (2 * slots + 32) * 4 > k6.SMEM_BUDGET
+        assert slots == k6.MAX_SLOTS \
+            or f * (2 * slots + 32) * 4 > k6.SMEM_BUDGET
 
 
 def test_decode_tool_main_on_cpu(capsys):
@@ -179,3 +180,31 @@ def test_decode_tool_main_on_cpu(capsys):
     for key in ("plain_ms", "k6_ms", "repeat_interleave_ms"):
         assert np.isfinite(result[key])
     assert "[800p] correct=True" in capsys.readouterr().out
+
+
+def test_status_buffer_per_stream_and_sequence():
+    """The wrapper's status buffers (``_state``): one per (device, stream),
+    zeroed when made, each call the next sequence number; made anew when a
+    call needs more words or the sequence numbers run out."""
+    dev = torch.device("cpu")
+    saved = dict(k6._states)
+    k6._states.clear()
+    try:
+        buf, seq = k6._state(dev, 11, 10)
+        assert buf.dtype == torch.int64 and buf.shape[0] >= 10
+        assert not buf.any() and seq == 1
+        again, seq = k6._state(dev, 11, 10)
+        assert again is buf and seq == 2
+        other, seq = k6._state(dev, 12, 10)
+        assert other is not buf and seq == 1
+        grown, seq = k6._state(dev, 11, 100)
+        assert grown is not buf and grown.shape[0] >= 100 and seq == 1
+        k6._states[(dev.index, 11)][1] = k6.SEQ_LIMIT - 1
+        fresh, seq = k6._state(dev, 11, 10)
+        assert fresh is not grown and not fresh.any() and seq == 1
+        for _ in range(3):
+            _, seq = k6._state(dev, 11, 10)
+        assert seq == 4 < k6.SEQ_LIMIT
+    finally:
+        k6._states.clear()
+        k6._states.update(saved)

@@ -19,6 +19,7 @@ from neuralgaussiansplatting_tpu.ops import zbuffer_pallas as jz
 from neuralgaussiansplatting_torch.ops import idxmap as tidx
 from neuralgaussiansplatting_torch.ops import zbuffer_pallas as tz
 
+import k3_cases
 from scenes import make_camera, random_gaussians
 from torch_parity import port_camera, to_torch
 
@@ -122,6 +123,91 @@ def test_k3_plain_version_matches_jax_kernel():
     np.testing.assert_array_equal(gid.numpy(), raw[:, 0].astype(np.int32))
     np.testing.assert_array_equal(dmin.numpy(), raw[:, 1])
     assert (gid >= 0).any() and (gid < 0).any()
+
+
+def test_k3_plain_version_matches_jax_kernel_on_shuffled_tiles():
+    """The instances of every tile in a random order: the Pallas kernel
+    (interpret mode) and K3's plain version still agree at every pixel, and
+    both give what they give in binning's order (ids equal, depths
+    bit-equal): the contract is an argmin, whatever the order."""
+    args = _port_k3_inputs()
+    shuffled = k3_cases.shuffle_tiles(args)
+    rects, depth, tile_start, tile_count, tiles_x = shuffled
+    assert not torch.equal(rects, args[0])
+    packed = np.zeros((jz.ROWS, rects.shape[1]), np.float32)
+    packed[:4] = rects[:4].numpy()
+    packed[4] = depth.numpy()
+    packed[5] = rects[4].numpy()
+    raw = jz._zbuf_call(jnp.asarray(packed), jnp.asarray(tile_start.numpy()),
+                        jnp.asarray(tile_count.numpy()),
+                        num_tiles=tile_start.shape[0], ch=jz.CHUNK,
+                        tiles_x=tiles_x, interpret=True)
+    raw = np.asarray(raw).reshape(-1, 2, tz.PIX)
+    gid, dmin = tz.zbuf_tiles_reference(*shuffled)
+    np.testing.assert_array_equal(gid.numpy(), raw[:, 0].astype(np.int32))
+    np.testing.assert_array_equal(dmin.numpy(), raw[:, 1])
+    want = tz.zbuf_tiles_reference(*args)
+    assert torch.equal(gid, want[0])
+    assert torch.equal(dmin.view(torch.int32), want[1].view(torch.int32))
+
+
+def _edge_floats():
+    """float32 values at every edge K3's keys must order: both zeros, both
+    infinities, the denormal and normal limits, values around BIG and 1,
+    and 2000 random bit patterns (NaNs dropped)."""
+    f = np.float32
+    tiny = np.finfo(f).tiny
+    edges = [0.0, -0.0, np.inf, -np.inf, 1e-45, -1e-45, tiny, -tiny,
+             np.nextafter(tiny, f(0)), -np.nextafter(tiny, f(0)), 1.0, -1.0,
+             np.nextafter(f(1), f(2)), np.nextafter(f(1), f(0)), 0.2,
+             tz.BIG, -tz.BIG, np.nextafter(f(tz.BIG), f(0)),
+             np.nextafter(f(tz.BIG), f(np.inf)), np.finfo(f).max,
+             -np.finfo(f).max]
+    bits = np.random.default_rng(0).integers(0, 2 ** 32, 2000,
+                                             dtype=np.uint64)
+    rand = bits.astype(np.uint32).view(f)
+    values = np.concatenate([np.array(edges, f), rand[~np.isnan(rand)]])
+    return torch.from_numpy(values)
+
+
+def test_depth_key_orders_as_floats_compare():
+    """K3's key encoding (the PyTorch twin of the kernel's ``depth_key``)
+    against plain float comparison on every pair of edge values: a < b iff
+    key(a) < key(b), a == b iff the keys are equal (so -0.0 and +0.0 share
+    one), and ``key_depth`` gives each value's bits back, +0.0 for -0.0."""
+    x = _edge_floats()
+    key = tz.depth_key(x)
+    assert key.dtype == torch.int64
+    assert int(key.min()) >= 0 and int(key.max()) < 2 ** 32
+    assert torch.equal(key[:, None] < key[None, :], x[:, None] < x[None, :])
+    assert torch.equal(key[:, None] == key[None, :],
+                       x[:, None] == x[None, :])
+    back = tz.key_depth(key)
+    zero = x == 0
+    assert torch.equal(back[~zero].view(torch.int32),
+                       x[~zero].view(torch.int32))
+    assert (back[zero].view(torch.int32) == 0).all()
+    # the miss key (all ones, above every depth key) and the zero key
+    assert int(key.max()) < 2 ** 32 - 1
+    assert int(tz.depth_key(torch.tensor([-0.0, 0.0])).unique()) == 2 ** 31 - 1
+
+
+@pytest.mark.parametrize("case", list(k3_cases.CASES))
+def test_k3_scatter_matches_plain_version(case):
+    """The kernel's algorithm in PyTorch (``k3_cases.zbuf_tiles_scatter``:
+    covered pairs, minimum key per pixel, the -0.0 walk) against K3's plain
+    version, on the adversarial tile sets with each tile's instances
+    shuffled; the plain version gives the same in both orders. Ids equal,
+    depths bit-equal."""
+    make = k3_cases.CASES[case]
+    args, shuffled = make(), make(seed=7)
+    want = tz.zbuf_tiles_reference(*args)
+    for got in (tz.zbuf_tiles_reference(*shuffled),
+                k3_cases.zbuf_tiles_scatter(*shuffled)):
+        assert torch.equal(got[0], want[0])
+        assert torch.equal(got[1].view(torch.int32),
+                           want[1].view(torch.int32))
+    assert (want[0] >= 0).any()
 
 
 def test_int32_ids_lift_the_2_pow_24_limit():
