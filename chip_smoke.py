@@ -24,6 +24,14 @@ K5 against their plain versions there with their device times and bounds;
 and the seq path at those shapes: K1 and K2 against their plain versions,
 their device times and bounds, seq render and fwd+bwd times.
 
+Scene path (the port's user path from files on disk): the port's
+``tools.make_demo_scene`` writes an 800x800 Blender scene (24 train and 6
+test views, 120k GT Gaussians, a 100k-point init cloud);
+``python -m neuralgaussiansplatting_torch.train``'s ``main`` trains it 600
+iterations (K1 and K2 once per iteration, test PSNR up by 2 dB, no drops);
+a subprocess resumes from the iteration-300 checkpoint; a COLMAP-layout
+copy trains 100 iterations at -r 2.
+
 Neural path (800x800, 100k Gaussians, SH degree 1, seeded 64-d features,
 full-width decoders): the tiled z-buffer against the per-pixel sort oracle;
 a 64x64 card-vs-CPU reference; ``render1/2/3`` from four cameras; 10 steps
@@ -52,12 +60,15 @@ import os
 import statistics
 import subprocess
 import sys
+import struct
 import tempfile
 import time
 
+import numpy as np
 import torch
 
 from neuralgaussiansplatting_torch import demo
+from neuralgaussiansplatting_torch import native
 from neuralgaussiansplatting_torch import gaussian_renderer as gr
 from neuralgaussiansplatting_torch.gaussian_renderer import render
 from neuralgaussiansplatting_torch.models import gaussians as gm
@@ -72,9 +83,15 @@ from neuralgaussiansplatting_torch.ops import preprocess as pp
 from neuralgaussiansplatting_torch.ops import blend as blend_plain
 from neuralgaussiansplatting_torch.ops import rasterize as rast
 from neuralgaussiansplatting_torch.ops import zbuffer_pallas
+from neuralgaussiansplatting_torch.ops import projection as proj
+from neuralgaussiansplatting_torch.scene import colmap as colmap_io
+from neuralgaussiansplatting_torch.scene import image_io
+from neuralgaussiansplatting_torch.scene import ply as ply_io
 from neuralgaussiansplatting_torch.tools import chain_bench
 from neuralgaussiansplatting_torch.tools import exp_decode_proto
 from neuralgaussiansplatting_torch.tools import exp_mosaic_probe
+from neuralgaussiansplatting_torch.tools import make_demo_scene
+from neuralgaussiansplatting_torch.train import __main__ as train_entry
 from neuralgaussiansplatting_torch.train import loop
 from neuralgaussiansplatting_torch.train import neural_loop
 from neuralgaussiansplatting_torch.train import optim
@@ -179,6 +196,24 @@ GARDEN_PROBE = rast.make_settings(
 # 16x16 and 32x32 tilings differ by design in the 3..3.33-sigma band of each
 # splat's rect (tests/test_blend_seq.py:58-75): max and mean |d| limits
 BAND_GATE = (0.05, 1e-3)
+# The scene phase: the port's demo-scene tool writes an 800x800 Blender
+# scene (24 train views, 6 test views, the video orbit) from 120k GT
+# Gaussians with a 100k-point init cloud, and the port's train entry point
+# trains it as a user would, at train.py's defaults (seq backend, 32x32 /
+# chunk 128) but for the short schedule below; then a resume from the
+# halfway checkpoint in a subprocess and a COLMAP-layout copy at -r 2.
+SCENE_TOOL_ARGS = ["--size", "800", "--views", "24", "--n_gaussians",
+                   "120000", "--init_points", "100000"]
+SCENE_ITERS, SCENE_CHECKPOINT, COLMAP_ITERS = 600, 300, 100
+SCENE_TRAIN_ARGS = ["--eval", "--densify_from_iter", "100",
+                    "--densification_interval", "100", "--tune_interval",
+                    "100", "--disable_viewer"]
+MIRROR_Z = np.array([1.0, 1.0, -1.0])
+SCENE_PSNR_GAIN = 2.0    # dB, test views, iteration SCENE_ITERS over 1
+# the root train.py's files, as tests/test_cli.py:41-47 lists them
+SCENE_FILES = (f"point_cloud/iteration_{SCENE_ITERS}/point_cloud.ply",
+               f"chkpnt{SCENE_CHECKPOINT}.ckpt", "cfg_args", "cfg_args.json",
+               "cameras.json", "input.ply")
 # K6 at the decode tool's workloads (tools/exp_decode_proto.py:160-162), f =
 # 6 columns. Its bound counts the bytes the function must move: each run's
 # start and f diffs read once (runs that start inside the domain), f int32
@@ -935,6 +970,183 @@ def phase_trainer():
           f"{fired}, {written_rows} rows written with zero Adam moments, "
           f"{model.num_alive} alive; reset_opacity_step leaves max opacity "
           f"{top:.6f}")
+
+
+def write_colmap_copy(src: str, dst: str):
+    """A COLMAP-layout copy of the Blender scene at ``src``: one PINHOLE
+    camera, every train and test view in ``images.bin`` (world-to-camera
+    quaternion and translation), the init cloud as ``points3D.bin`` (empty
+    tracks) and the views composited over black as RGB PNGs. The demo
+    tool's camera frames are mirrored (determinant -1), which no quaternion
+    holds, so the copy mirrors the world in z: every rotation becomes
+    proper and every image stays the same."""
+    sparse = os.path.join(dst, "sparse", "0")
+    images = os.path.join(dst, "images")
+    os.makedirs(sparse)
+    os.makedirs(images)
+    views = []
+    for split in ("train", "test"):
+        with open(os.path.join(src, f"transforms_{split}.json")) as f:
+            meta = json.load(f)
+        views += [(split, frame) for frame in meta["frames"]]
+    height, width = image_io.read_png(
+        os.path.join(src, views[0][1]["file_path"] + ".png")).shape[:2]
+    focal = proj.fov2focal(meta["camera_angle_x"], width)
+    with open(os.path.join(sparse, "cameras.bin"), "wb") as f:
+        f.write(struct.pack("<QiiQQ", 1, 1, 1, width, height))
+        f.write(struct.pack("<dddd", focal, focal, width / 2, height / 2))
+    with open(os.path.join(sparse, "images.bin"), "wb") as f:
+        f.write(struct.pack("<Q", len(views)))
+        for i, (split, frame) in enumerate(views):
+            c2w = np.array(frame["transform_matrix"])
+            c2w[:3, 1:3] *= -1                      # OpenGL -> COLMAP axes
+            w2c = np.linalg.inv(c2w)
+            rot = w2c[:3, :3] * MIRROR_Z         # R diag(1, 1, -1)
+            check(np.linalg.det(rot) > 0, "improper camera rotation")
+            name = f"{split}_{os.path.basename(frame['file_path'])}.png"
+            f.write(struct.pack("<i", i + 1))
+            f.write(struct.pack("<dddd", *colmap_io.rotmat2qvec(rot)))
+            f.write(struct.pack("<ddd", *w2c[:3, 3]))
+            f.write(struct.pack("<i", 1) + name.encode() + b"\x00")
+            f.write(struct.pack("<Q", 0))
+            rgba = image_io.read_png(
+                os.path.join(src, frame["file_path"] + ".png"))
+            rgb = rgba[..., :3] / 255.0 * (rgba[..., 3:] / 255.0)
+            image_io.write_png(os.path.join(images, name),
+                               (rgb * 255.0).astype(np.uint8))
+    xyz, colors, _ = ply_io.fetch_point_cloud(
+        os.path.join(src, "points3d.ply"))
+    rgb = (colors * 255.0).round().astype(np.uint8)
+    record = np.dtype([("id", "<u8"), ("xyz", "<f8", 3), ("rgb", "u1", 3),
+                       ("error", "<f8"), ("track", "<u8")])
+    rows = np.zeros(len(xyz), record)
+    rows["id"], rows["xyz"], rows["rgb"] = (np.arange(len(xyz)),
+                                            xyz * MIRROR_Z, rgb)
+    with open(os.path.join(sparse, "points3D.bin"), "wb") as f:
+        f.write(struct.pack("<Q", len(xyz)) + rows.tobytes())
+
+
+def phase_scene(rows):
+    """The port's user path from files on disk: the demo-scene tool writes
+    the 800x800 scene, ``python -m neuralgaussiansplatting_torch.train``'s
+    ``main`` trains it SCENE_ITERS iterations in this process (K1 and K2
+    once per iteration), a subprocess resumes from the halfway checkpoint,
+    and a COLMAP-layout copy trains COLMAP_ITERS iterations at -r 2."""
+    with tempfile.TemporaryDirectory() as tmp:
+        src, out = os.path.join(tmp, "scene"), os.path.join(tmp, "out")
+        t0 = time.perf_counter()
+        make_demo_scene.main(["--out", src] + SCENE_TOOL_ARGS)
+        build_s = time.perf_counter() - t0
+
+        pngs = sorted(os.path.join(src, "train", f)
+                      for f in os.listdir(os.path.join(src, "train")))
+        t0 = time.perf_counter()
+        first = [image_io.read_png(p) for p in pngs][0]
+        up_ms = (time.perf_counter() - t0) * 1e3 / len(pngs)
+        decode_ms = {}
+        for name, kind in (("Average", 3), ("Paeth", 4)):
+            data = image_io.encode_png(first, kind)
+            t0 = time.perf_counter()
+            check((image_io.decode_png(data) == first).all(),
+                  f"PNG decode of the {name}-filtered image")
+            decode_ms[name] = (time.perf_counter() - t0) * 1e3
+        h, w = first.shape[:2]
+        print(f"scene: the demo-scene tool wrote the scene ({' '.join(
+              SCENE_TOOL_ARGS)}) in {build_s:.2f} s; PNG decode of a "
+              f"{w}x{h} RGBA image: {up_ms:.2f} ms per image (Up filter, "
+              f"the tool's; mean of {len(pngs)}), "
+              + ", ".join(f"{k} {v:.2f} ms" for k, v in decode_ms.items()))
+
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        summary = train_entry.main(
+            ["-s", src, "-m", out, "--iterations", str(SCENE_ITERS),
+             "--test_iterations", "1", str(SCENE_ITERS), "--save_iterations",
+             str(SCENE_ITERS), "--checkpoint_iterations",
+             str(SCENE_CHECKPOINT), "--quiet"] + SCENE_TRAIN_ARGS)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        check(counts["K1"] >= SCENE_ITERS and counts["K2"] == SCENE_ITERS,
+              f"{SCENE_ITERS} iterations launched {counts}")
+        check(counts["K4"] == counts["K5"] == 0,
+              f"the seq entry point reached the pallas kernels: {counts}")
+        rows["K1"]["scene_launches"] = counts["K1"]
+        rows["K2"]["scene_launches"] = counts["K2"]
+        psnr = {it: summary["evals"][it]["test"][1]
+                for it in (1, SCENE_ITERS)}
+        check(psnr[SCENE_ITERS] >= psnr[1] + SCENE_PSNR_GAIN,
+              f"test PSNR {psnr[1]:.3f} -> {psnr[SCENE_ITERS]:.3f} dB "
+              f"gained less than {SCENE_PSNR_GAIN} dB")
+        tune_it, dropped = summary["tune"][-1]
+        check(dropped == 0, f"{dropped} instances dropped at the tune point "
+              f"{tune_it}")
+        check(math.isfinite(summary["last_loss"]),
+              f"last loss {summary['last_loss']}")
+        for name in SCENE_FILES:
+            check(os.path.exists(os.path.join(out, name)),
+                  f"the entry point wrote no {name}")
+        print(f"scene train: {SCENE_ITERS} iterations through the entry "
+              f"point in {summary['wall_s']:.2f} s, median iteration "
+              f"{summary['median_iter_ms']:.3f} ms (host clock, "
+              f"{len(summary['iter_ms'])} iterations without densify, "
+              f"evaluation or file writes); K1 {counts['K1']}, K2 "
+              f"{counts['K2']} launches; test PSNR {psnr[1]:.3f} -> "
+              f"{psnr[SCENE_ITERS]:.3f} dB (train views "
+              f"{summary['evals'][1]['train'][1]:.3f} -> "
+              f"{summary['evals'][SCENE_ITERS]['train'][1]:.3f}); dropped 0 "
+              f"at the tune point {tune_it}; last loss "
+              f"{summary['last_loss']:.6f}")
+
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "neuralgaussiansplatting_torch.train",
+             "-s", src, "-m", out, "--iterations", str(SCENE_ITERS),
+             "--test_iterations", str(SCENE_ITERS), "--save_iterations",
+             str(SCENE_ITERS), "--start_checkpoint",
+             os.path.join(out, f"chkpnt{SCENE_CHECKPOINT}.ckpt")]
+            + SCENE_TRAIN_ARGS, cwd=os.path.dirname(os.path.abspath(__file__)),
+            capture_output=True, text=True, timeout=600)
+        resume_s = time.perf_counter() - t0
+        check(res.returncode == 0, f"resume exited {res.returncode}: "
+              f"{res.stdout[-1500:]}\n{res.stderr[-3000:]}")
+        check(f"at iteration {SCENE_CHECKPOINT}" in res.stdout,
+              f"the resume did not start at {SCENE_CHECKPOINT}")
+        last = [line for line in res.stdout.splitlines()
+                if line.startswith("last loss ")]
+        check(last and math.isfinite(float(last[-1].split()[2])),
+              f"the resume ended without a finite loss: {last}")
+        print(f"scene resume: a subprocess resumed at iteration "
+              f"{SCENE_CHECKPOINT} and ran to {SCENE_ITERS} in "
+              f"{resume_s:.2f} s; {last[-1].split(' [')[0]}; "
+              + "; ".join(line.split(" [")[0] for line in
+                          res.stdout.splitlines() if "Evaluating" in line))
+
+        colmap = os.path.join(tmp, "colmap")
+        t0 = time.perf_counter()
+        write_colmap_copy(src, colmap)
+        copy_s = time.perf_counter() - t0
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        csummary = train_entry.main(
+            ["-s", colmap, "-m", os.path.join(tmp, "colmap_out"), "-r", "2",
+             "--eval", "--iterations", str(COLMAP_ITERS),
+             "--test_iterations", str(COLMAP_ITERS), "--save_iterations",
+             str(COLMAP_ITERS), "--disable_viewer", "--quiet"])
+        torch.cuda.synchronize()
+        colmap_s = time.perf_counter() - t0
+        counts = launch_counts()
+        check(counts["K1"] >= COLMAP_ITERS and counts["K2"] == COLMAP_ITERS,
+              f"the COLMAP run launched {counts}")
+        check(math.isfinite(csummary["last_loss"]),
+              f"COLMAP run: last loss {csummary['last_loss']}")
+        cpsnr = csummary["evals"][COLMAP_ITERS]["test"][1]
+        check(math.isfinite(cpsnr), f"COLMAP run: test PSNR {cpsnr}")
+        print(f"scene COLMAP: copy written in {copy_s:.2f} s; -r 2 "
+              f"{COLMAP_ITERS} iterations in {colmap_s:.2f} s including the "
+              f"scene load (native points3D parse: "
+              f"{'yes' if native.available() else 'no, Python'}), test PSNR "
+              f"{cpsnr:.3f}, last loss {csummary['last_loss']:.6f}")
+    print(f"scene card: {card_line()}")
 
 
 def phase_breakdown(params, state):
@@ -1921,6 +2133,7 @@ def main():
     phase_breakdown(loaded, lstate)
     phase_train(loaded, lstate, rows)
     phase_trainer()
+    phase_scene(rows)
 
     pallas = phase_pallas_serve(params, state)
     pallas_32, _ = sized_settings(PALLAS_PROBE_32, params, state.alive,

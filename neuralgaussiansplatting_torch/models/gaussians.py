@@ -342,6 +342,42 @@ class GaussianModel:
             pcd.points, pcd.colors, pcd.normals, self.max_sh_degree,
             capacity, device=self.device)
 
+    def capture(self) -> dict:
+        """The model as a dict of ints, floats and host tensors (what
+        ``torch.save`` with ``weights_only`` loading takes); the optimizer
+        state belongs to the ``Trainer``, which checkpoints it."""
+        def host(nt):
+            return {k: v.detach().cpu() for k, v in nt._asdict().items()}
+
+        return {
+            "active_sh_degree": self.active_sh_degree,
+            "max_sh_degree": self.max_sh_degree,
+            "spatial_lr_scale": self.spatial_lr_scale,
+            "params": host(self.params),
+            "state": host(self.state),
+        }
+
+    def restore(self, payload: dict):
+        """Inverse of ``capture``; ``params``/``state`` may also be
+        sequences in field order (the JAX package's NamedTuples as numpy),
+        and rank-3 SH leaves are flattened."""
+        def put(v):
+            if not isinstance(v, torch.Tensor):
+                v = torch.from_numpy(np.array(v))
+            return v.to(self.device)
+
+        def leaves(obj, cls):
+            if isinstance(obj, dict):
+                obj = [obj[k] for k in cls._fields]
+            return cls(*(put(v) for v in obj))
+
+        self.active_sh_degree = int(payload["active_sh_degree"])
+        self.max_sh_degree = int(payload["max_sh_degree"])
+        self.spatial_lr_scale = float(payload["spatial_lr_scale"])
+        self.params = normalize_params(leaves(payload["params"],
+                                              GaussianParams))
+        self.state = leaves(payload["state"], GaussianState)
+
     def save_ply(self, path: str):
         save_ply(path, self.params, self.state.alive)
 

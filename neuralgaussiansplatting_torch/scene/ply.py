@@ -1,7 +1,9 @@
 """Minimal PLY I/O (binary little-endian + ascii read) with numpy.
 
 The port's own copy of the reference-schema reader/writer, so Gaussian
-checkpoints interchange with the JAX package and the upstream 3DGS code.
+checkpoints interchange with the JAX package and the upstream 3DGS code,
+and of the input point-cloud pair ``fetch_point_cloud`` /
+``store_point_cloud`` the dataset readers use.
 """
 
 from __future__ import annotations
@@ -90,4 +92,54 @@ def write_ply(path, names, columns, comment=None):
         f.write(b"end_header\n")
         rec = np.rec.fromarrays(columns.T, names=list(names),
                                 formats=["<f4"] * len(names))
+        f.write(rec.tobytes())
+
+
+def fetch_point_cloud(path):
+    """Read (points, colors, normals) with the reference's random fallbacks.
+
+    Reference dataset_readers.py:108-130 (fork behavior): missing color
+    properties -> random colors; missing normals -> random normals.
+    """
+    v = read_ply(path)
+    names = v.dtype.names
+    positions = np.stack([v["x"], v["y"], v["z"]], axis=1).astype(np.float64)
+    n = positions.shape[0]
+    if all(k in names for k in ("red", "green", "blue")):
+        colors = np.stack([v["red"], v["green"], v["blue"]], axis=1) / 255.0
+    else:
+        colors = np.random.rand(n, 3)
+    if all(k in names for k in ("nx", "ny", "nz")):
+        normals = np.stack([v["nx"], v["ny"], v["nz"]], axis=1).astype(np.float64)
+    else:
+        normals = np.random.rand(n, 3)
+    return positions, colors, normals
+
+
+def store_point_cloud(path, xyz, rgb):
+    """Write an input point cloud with uchar colors, reference storePly
+    (dataset_readers.py:132-147)."""
+    n = xyz.shape[0]
+    normals = np.zeros_like(xyz, dtype=np.float32)
+    dtype = np.dtype([
+        ("x", "<f4"), ("y", "<f4"), ("z", "<f4"),
+        ("nx", "<f4"), ("ny", "<f4"), ("nz", "<f4"),
+        ("red", "u1"), ("green", "u1"), ("blue", "u1"),
+    ])
+    rec = np.empty(n, dtype=dtype)
+    for i, k in enumerate(("x", "y", "z")):
+        rec[k] = xyz[:, i]
+    for i, k in enumerate(("nx", "ny", "nz")):
+        rec[k] = normals[:, i]
+    for i, k in enumerate(("red", "green", "blue")):
+        rec[k] = (np.clip(rgb[:, i], 0, 1) * 255).astype(np.uint8) if rgb.dtype.kind == "f" else rgb[:, i]
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(b"ply\nformat binary_little_endian 1.0\n")
+        f.write(f"element vertex {n}\n".encode())
+        for name, t in [("x", "float"), ("y", "float"), ("z", "float"),
+                        ("nx", "float"), ("ny", "float"), ("nz", "float"),
+                        ("red", "uchar"), ("green", "uchar"), ("blue", "uchar")]:
+            f.write(f"property {t} {name}\n".encode())
+        f.write(b"end_header\n")
         f.write(rec.tobytes())

@@ -12,16 +12,24 @@ A step repeats bit for bit from the same state: nothing on its gradient
 path sums in a run-dependent order (SSIM's convolutions set their own
 cuDNN flags, see ``utils.losses``).
 
-Not ported yet (later slices): the multi-step dispatch ``step_block`` /
-``train_steps``, the pickle and orbax checkpoints, the debug snapshot and
-``training(scene, ...)``, which needs the scene layer.
+``Trainer.save_checkpoint`` / ``restore_checkpoint`` are the JAX
+package's pickle checkpoint as ``torch.save`` of plain dicts of tensors
+and ints (loaded with ``weights_only=True``); its orbax pair has no
+counterpart. ``training(scene, ...)`` is the loop over a ``Scene``.
+
+Not ported yet: the multi-step dispatch ``step_block`` / ``train_steps``
+(its counterpart is a CUDA graph of ``train_step``, a later slice).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
+import os
+import time
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from neuralgaussiansplatting_torch.gaussian_renderer import render
@@ -150,6 +158,9 @@ class Trainer:
     white_background: bool = False
     cameras_extent: float = 1.0
     seed: int = 0
+    debug: bool = False          # snapshot and raise on a non-finite loss
+    debug_from: int = -1         # ... from this iteration on (-1: always)
+    snapshot_dir: str = "."
     auto_grow: bool = True
     auto_tune_capacity: bool = True   # re-bucket instance capacity to demand
     tune_interval: int = 500
@@ -215,10 +226,23 @@ class Trainer:
                             device=self.bg.device)
         else:
             bg = self.bg
+        ts_in = self.ts
         self.ts, metrics = train_step(
             self.ts, cam, gt_image, bg, tx=self.tx,
             sh_degree=self.gaussians.active_sh_degree,
             settings=self.settings, lambda_dssim=self.opt.lambda_dssim)
+
+        if self.debug and (self.debug_from < 0 or iteration >= self.debug_from):
+            # reads the loss back: a wait on the device every iteration
+            if not math.isfinite(metrics["loss"].item()):
+                # the failing step is undone, so the snapshot holds its
+                # inputs (the JAX package dumps the state after it)
+                self.ts = ts_in
+                path = os.path.join(self.snapshot_dir, "snapshot_fw.pt")
+                self.dump_debug_snapshot(cam, gt_image, iteration, path)
+                raise FloatingPointError(
+                    f"non-finite loss at iteration {iteration}; inputs "
+                    f"dumped to {path}")
         return metrics
 
     def apply_schedule(self, iteration: int, metrics):
@@ -269,3 +293,111 @@ class Trainer:
                      for name, g in self.ts.opt_state.items()}
         self.ts = TrainState(params, gstate, opt_state, self.ts.step)
         return True
+
+    def dump_debug_snapshot(self, cam, gt, iteration: int, path: str) -> str:
+        """Write the failing step's whole input (camera, ground truth,
+        parameters, state, SH degree) with ``torch.save`` for an offline
+        repeat; ``torch.load(path, weights_only=True)`` reads it."""
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        payload = {
+            "iteration": iteration,
+            "cam": {"view": cam.view.cpu(), "full_proj": cam.full_proj.cpu(),
+                    "campos": cam.campos.cpu(), "tan_fovx": cam.tan_fovx,
+                    "tan_fovy": cam.tan_fovy, "width": cam.width,
+                    "height": cam.height},
+            "gt": gt.detach().cpu(),
+            "params": _host(self.ts.params),
+            "gstate": _host(self.ts.gstate),
+            "active_sh_degree": self.gaussians.active_sh_degree,
+        }
+        torch.save(payload, path)
+        return path
+
+    def save_checkpoint(self, path: str, iteration: int):
+        """The whole training state at ``iteration`` (parameters, state,
+        Adam moments and counts, SH degree, spatial learning-rate scale)."""
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        payload = {
+            "iteration": iteration,
+            "active_sh_degree": self.gaussians.active_sh_degree,
+            "spatial_lr_scale": self.gaussians.spatial_lr_scale,
+            "params": _host(self.ts.params),
+            "gstate": _host(self.ts.gstate),
+            "opt_state": {name: {"mu": g.mu.detach().cpu(),
+                                 "nu": g.nu.detach().cpu(),
+                                 "count": g.count}
+                          for name, g in self.ts.opt_state.items()},
+        }
+        torch.save(payload, path)
+
+    def restore_checkpoint(self, path: str) -> int:
+        """Load a ``save_checkpoint`` file onto the trainer's device;
+        returns its iteration. The optimizer is rebuilt for the file's
+        spatial learning-rate scale (the JAX package keeps the one the
+        trainer was made with)."""
+        dev = self.ts.params.xyz.device
+        payload = torch.load(path, map_location=dev, weights_only=True)
+        self.gaussians.active_sh_degree = payload["active_sh_degree"]
+        self.gaussians.spatial_lr_scale = payload["spatial_lr_scale"]
+        self.tx = optim.make_optimizer(self.opt, payload["spatial_lr_scale"])
+        iteration = payload["iteration"]
+        self.ts = TrainState(
+            params=gm.normalize_params(
+                gm.GaussianParams(**payload["params"])),
+            gstate=gm.GaussianState(**payload["gstate"]),
+            opt_state={name: optim.AdamGroup(g["mu"], g["nu"], g["count"])
+                       for name, g in payload["opt_state"].items()},
+            step=iteration)
+        self.sync_model()
+        return iteration
+
+
+def _host(nt) -> dict:
+    """{field: host tensor} of a NamedTuple of tensors."""
+    return {k: v.detach().cpu() for k, v in nt._asdict().items()}
+
+
+def training(scene, trainer: Trainer, iterations: int,
+             save_iterations=(), checkpoint_iterations=(),
+             log_every: int = 100, progress=None):
+    """The loop over a ``Scene``: cameras in the order of
+    ``np.random.default_rng(trainer.seed)`` permutations, ground truth and
+    camera tensors cached on the trainer's device, the model saved and
+    checkpointed at the given iterations. Returns the logged metrics (every
+    ``log_every`` iterations and the last), each also passed to
+    ``progress``."""
+    dev = trainer.ts.params.xyz.device
+    rng = np.random.default_rng(trainer.seed)
+    stack = []
+    cam_cache, gt_cache = {}, {}
+    history = []
+    t0 = time.time()
+    for iteration in range(1, iterations + 1):
+        if not stack:
+            stack = list(rng.permutation(len(scene.get_train_cameras())))
+        cam = scene.get_train_cameras()[stack.pop()]
+        cp = cam_cache.get(cam.uid)
+        if cp is None:
+            cp = cam_cache[cam.uid] = cam.params(dev)
+        gt = gt_cache.get(cam.uid)
+        if gt is None:
+            gt = gt_cache[cam.uid] = torch.from_numpy(cam.image).to(dev)
+
+        metrics = trainer.step(cp, gt, iteration)
+        if iteration % log_every == 0 or iteration == iterations:
+            m = {k: float(v) for k, v in metrics.items() if k != "densify"}
+            m["iter"] = iteration
+            m["elapsed"] = time.time() - t0
+            m["alive"] = int(trainer.ts.gstate.alive.sum())
+            history.append(m)
+            if progress:
+                progress(m)
+        if iteration in save_iterations:
+            trainer.sync_model()
+            scene.save(iteration)
+        if iteration in checkpoint_iterations:
+            trainer.save_checkpoint(
+                os.path.join(scene.model_path, f"chkpnt{iteration}.ckpt"),
+                iteration)
+    trainer.sync_model()
+    return history

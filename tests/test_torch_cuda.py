@@ -651,6 +651,30 @@ def test_train_step_repeats_bit_for_bit_on_gpu(backend):
 
 
 @pytest.mark.cuda
+def test_train_entry_point_on_gpu(tmp_path):
+    """The port's train entry point on a 64x64 scene its demo-scene tool
+    renders: 30 iterations through K1 and K2 (once each per iteration, plus
+    K1 for the evaluation renders), a finite loss, the model saved."""
+    _need_gpu()
+    from neuralgaussiansplatting_torch.tools import make_demo_scene
+    from neuralgaussiansplatting_torch.train import __main__ as entry
+    src, out = str(tmp_path / "scene"), str(tmp_path / "out")
+    make_demo_scene.main(["--out", src, "--size", "64", "--views", "8",
+                          "--n_gaussians", "2000", "--init_points", "1000"])
+    k1, k2 = blend_seq.launches, blend_seq.bwd_launches
+    summary = entry.main(["-s", src, "-m", out, "--eval", "--iterations",
+                          "30", "--test_iterations", "30",
+                          "--save_iterations", "30", "--disable_viewer",
+                          "--quiet"])
+    assert blend_seq.launches - k1 >= 30
+    assert blend_seq.bwd_launches - k2 == 30
+    assert math.isfinite(summary["last_loss"])
+    assert set(summary["evals"][30]) == {"test", "train"}
+    assert os.path.exists(os.path.join(out, "point_cloud", "iteration_30",
+                                       "point_cloud.ply"))
+
+
+@pytest.mark.cuda
 def test_k3_matches_plain_version_on_gpu():
     """K3 vs its plain version on the same card and inputs: a random 256²
     scene (ids equal, depths bit-equal, also with each tile's instances
