@@ -30,7 +30,16 @@ test views, 120k GT Gaussians, a 100k-point init cloud);
 ``python -m neuralgaussiansplatting_torch.train``'s ``main`` trains it 600
 iterations (K1 and K2 once per iteration, test PSNR up by 2 dB, no drops);
 a subprocess resumes from the iteration-300 checkpoint; a COLMAP-layout
-copy trains 100 iterations at -r 2.
+copy trains 100 iterations at -r 2. Then the offline phase on those files:
+``python -m neuralgaussiansplatting_torch.render``'s ``main`` renders the
+saved model's 30 views (K1 once per view; the 6 test views again under
+``--backend pallas``, K4 once per view, no drops; both with the buffers
+its warning asks for on this model), ``.metrics``' ``main``
+scores them (SSIM, PSNR within 0.5 dB of the run's, LPIPS from seeded
+synthetic VGG weights), and ``.trainn``'s ``main`` trains the sw=2 neural
+path 300 iterations from the halfway checkpoint (K3 at least once per
+iteration, test PSNR up by 1 dB, 60 video frames and 2 archives, the
+feature statistics, the saved geometry bit-equal to the checkpoint's).
 
 Neural path (800x800, 100k Gaussians, SH degree 1, seeded 64-d features,
 full-width decoders): the tiled z-buffer against the per-pixel sort oracle;
@@ -57,6 +66,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -69,6 +79,9 @@ import torch
 
 from neuralgaussiansplatting_torch import demo
 from neuralgaussiansplatting_torch import native
+from neuralgaussiansplatting_torch import metrics as metrics_entry
+from neuralgaussiansplatting_torch import render as render_entry
+from neuralgaussiansplatting_torch import trainn as trainn_entry
 from neuralgaussiansplatting_torch import gaussian_renderer as gr
 from neuralgaussiansplatting_torch.gaussian_renderer import render
 from neuralgaussiansplatting_torch.models import gaussians as gm
@@ -96,6 +109,7 @@ from neuralgaussiansplatting_torch.train import loop
 from neuralgaussiansplatting_torch.train import neural_loop
 from neuralgaussiansplatting_torch.train import optim
 from neuralgaussiansplatting_torch.utils import losses
+from neuralgaussiansplatting_torch.utils import lpips
 from neuralgaussiansplatting_torch.utils.timing import cuda_ms, device_ms
 
 W = H = 800
@@ -214,6 +228,28 @@ SCENE_PSNR_GAIN = 2.0    # dB, test views, iteration SCENE_ITERS over 1
 SCENE_FILES = (f"point_cloud/iteration_{SCENE_ITERS}/point_cloud.ply",
                f"chkpnt{SCENE_CHECKPOINT}.ckpt", "cfg_args", "cfg_args.json",
                "cameras.json", "input.ply")
+# The offline phase works on the scene phase's files: the render entry
+# point renders the saved model (the resume's, at SCENE_ITERS) from its 24
+# train and 6 test views, K1 once per view, and again the test views under
+# --backend pallas (K4 once per view); the metrics entry point scores the
+# test renders with seeded synthetic LPIPS weights (the VGG weights are not
+# in the repository), its PSNR within OFFLINE_PSNR_GATE dB of the run's own
+# (the PNGs' uint8 rounding); the neural entry point trains the sw=2 path
+# TRAINN_ITERS iterations from the halfway checkpoint, video frames and
+# feature statistics included.
+# The render entry point's defaults (train.py's pipeline flags: capacity
+# 2^20, max_per_tile 4096) drop instances on this model: its densest 32x32
+# tile holds more than 4096 instances, and a 16x16 view more than 2^20
+# (the render lines print both demands). So it is given the buffers a user
+# who reads its warning gives it.
+OFFLINE_VIEWS = {"train": 24, "test": 6}
+RENDER_ARGS = ["--max_per_tile", "8192"]
+PALLAS_RENDER_ARGS = ["--backend", "pallas", "--skip_train", "--capacity",
+                      str(1 << 21), "--max_per_tile", "8192"]
+OFFLINE_PSNR_GATE = 0.5
+TRAINN_ITERS, TRAINN_ANALYSIS, TRAINN_PSNR_GAIN = 300, 150, 1.0
+VIDEO_FRAMES = 60                  # the demo tool's orbit
+VIDEO_ARCHIVES = 2                 # frames 0 and 36, every 36th
 # K6 at the decode tool's workloads (tools/exp_decode_proto.py:160-162), f =
 # 6 columns. Its bound counts the bytes the function must move: each run's
 # start and f diffs read once (runs that start inside the domain), f int32
@@ -1026,127 +1062,326 @@ def write_colmap_copy(src: str, dst: str):
         f.write(struct.pack("<Q", len(xyz)) + rows.tobytes())
 
 
-def phase_scene(rows):
+def phase_scene(tmp, rows):
     """The port's user path from files on disk: the demo-scene tool writes
-    the 800x800 scene, ``python -m neuralgaussiansplatting_torch.train``'s
-    ``main`` trains it SCENE_ITERS iterations in this process (K1 and K2
-    once per iteration), a subprocess resumes from the halfway checkpoint,
-    and a COLMAP-layout copy trains COLMAP_ITERS iterations at -r 2."""
-    with tempfile.TemporaryDirectory() as tmp:
-        src, out = os.path.join(tmp, "scene"), os.path.join(tmp, "out")
-        t0 = time.perf_counter()
-        make_demo_scene.main(["--out", src] + SCENE_TOOL_ARGS)
-        build_s = time.perf_counter() - t0
+    the 800x800 scene into ``tmp``, ``python -m
+    neuralgaussiansplatting_torch.train``'s ``main`` trains it SCENE_ITERS
+    iterations in this process (K1 and K2 once per iteration), a subprocess
+    resumes from the halfway checkpoint, and a COLMAP-layout copy trains
+    COLMAP_ITERS iterations at -r 2. Returns (scene directory, model
+    directory, the resumed run's test PSNR at SCENE_ITERS, which is the
+    saved model's)."""
+    src, out = os.path.join(tmp, "scene"), os.path.join(tmp, "out")
+    t0 = time.perf_counter()
+    make_demo_scene.main(["--out", src] + SCENE_TOOL_ARGS)
+    build_s = time.perf_counter() - t0
 
-        pngs = sorted(os.path.join(src, "train", f)
-                      for f in os.listdir(os.path.join(src, "train")))
+    pngs = sorted(os.path.join(src, "train", f)
+                  for f in os.listdir(os.path.join(src, "train")))
+    t0 = time.perf_counter()
+    first = [image_io.read_png(p) for p in pngs][0]
+    up_ms = (time.perf_counter() - t0) * 1e3 / len(pngs)
+    decode_ms = {}
+    for name, kind in (("Average", 3), ("Paeth", 4)):
+        data = image_io.encode_png(first, kind)
         t0 = time.perf_counter()
-        first = [image_io.read_png(p) for p in pngs][0]
-        up_ms = (time.perf_counter() - t0) * 1e3 / len(pngs)
-        decode_ms = {}
-        for name, kind in (("Average", 3), ("Paeth", 4)):
-            data = image_io.encode_png(first, kind)
-            t0 = time.perf_counter()
-            check((image_io.decode_png(data) == first).all(),
-                  f"PNG decode of the {name}-filtered image")
-            decode_ms[name] = (time.perf_counter() - t0) * 1e3
-        h, w = first.shape[:2]
-        print(f"scene: the demo-scene tool wrote the scene ({' '.join(
-              SCENE_TOOL_ARGS)}) in {build_s:.2f} s; PNG decode of a "
-              f"{w}x{h} RGBA image: {up_ms:.2f} ms per image (Up filter, "
-              f"the tool's; mean of {len(pngs)}), "
-              + ", ".join(f"{k} {v:.2f} ms" for k, v in decode_ms.items()))
+        check((image_io.decode_png(data) == first).all(),
+              f"PNG decode of the {name}-filtered image")
+        decode_ms[name] = (time.perf_counter() - t0) * 1e3
+    h, w = first.shape[:2]
+    print(f"scene: the demo-scene tool wrote the scene ({' '.join(
+          SCENE_TOOL_ARGS)}) in {build_s:.2f} s; PNG decode of a "
+          f"{w}x{h} RGBA image: {up_ms:.2f} ms per image (Up filter, "
+          f"the tool's; mean of {len(pngs)}), "
+          + ", ".join(f"{k} {v:.2f} ms" for k, v in decode_ms.items()))
 
-        torch.cuda.synchronize()
-        reset_launch_counts()
-        summary = train_entry.main(
-            ["-s", src, "-m", out, "--iterations", str(SCENE_ITERS),
-             "--test_iterations", "1", str(SCENE_ITERS), "--save_iterations",
-             str(SCENE_ITERS), "--checkpoint_iterations",
-             str(SCENE_CHECKPOINT), "--quiet"] + SCENE_TRAIN_ARGS)
-        torch.cuda.synchronize()
-        counts = launch_counts()
-        check(counts["K1"] >= SCENE_ITERS and counts["K2"] == SCENE_ITERS,
-              f"{SCENE_ITERS} iterations launched {counts}")
-        check(counts["K4"] == counts["K5"] == 0,
-              f"the seq entry point reached the pallas kernels: {counts}")
-        rows["K1"]["scene_launches"] = counts["K1"]
-        rows["K2"]["scene_launches"] = counts["K2"]
-        psnr = {it: summary["evals"][it]["test"][1]
-                for it in (1, SCENE_ITERS)}
-        check(psnr[SCENE_ITERS] >= psnr[1] + SCENE_PSNR_GAIN,
-              f"test PSNR {psnr[1]:.3f} -> {psnr[SCENE_ITERS]:.3f} dB "
-              f"gained less than {SCENE_PSNR_GAIN} dB")
-        tune_it, dropped = summary["tune"][-1]
-        check(dropped == 0, f"{dropped} instances dropped at the tune point "
-              f"{tune_it}")
-        check(math.isfinite(summary["last_loss"]),
-              f"last loss {summary['last_loss']}")
-        for name in SCENE_FILES:
-            check(os.path.exists(os.path.join(out, name)),
-                  f"the entry point wrote no {name}")
-        print(f"scene train: {SCENE_ITERS} iterations through the entry "
-              f"point in {summary['wall_s']:.2f} s, median iteration "
-              f"{summary['median_iter_ms']:.3f} ms (host clock, "
-              f"{len(summary['iter_ms'])} iterations without densify, "
-              f"evaluation or file writes); K1 {counts['K1']}, K2 "
-              f"{counts['K2']} launches; test PSNR {psnr[1]:.3f} -> "
-              f"{psnr[SCENE_ITERS]:.3f} dB (train views "
-              f"{summary['evals'][1]['train'][1]:.3f} -> "
-              f"{summary['evals'][SCENE_ITERS]['train'][1]:.3f}); dropped 0 "
-              f"at the tune point {tune_it}; last loss "
-              f"{summary['last_loss']:.6f}")
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    summary = train_entry.main(
+        ["-s", src, "-m", out, "--iterations", str(SCENE_ITERS),
+         "--test_iterations", "1", str(SCENE_ITERS), "--save_iterations",
+         str(SCENE_ITERS), "--checkpoint_iterations",
+         str(SCENE_CHECKPOINT), "--quiet"] + SCENE_TRAIN_ARGS)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    check(counts["K1"] >= SCENE_ITERS and counts["K2"] == SCENE_ITERS,
+          f"{SCENE_ITERS} iterations launched {counts}")
+    check(counts["K4"] == counts["K5"] == 0,
+          f"the seq entry point reached the pallas kernels: {counts}")
+    rows["K1"]["scene_launches"] = counts["K1"]
+    rows["K2"]["scene_launches"] = counts["K2"]
+    psnr = {it: summary["evals"][it]["test"][1]
+            for it in (1, SCENE_ITERS)}
+    check(psnr[SCENE_ITERS] >= psnr[1] + SCENE_PSNR_GAIN,
+          f"test PSNR {psnr[1]:.3f} -> {psnr[SCENE_ITERS]:.3f} dB "
+          f"gained less than {SCENE_PSNR_GAIN} dB")
+    tune_it, dropped = summary["tune"][-1]
+    check(dropped == 0, f"{dropped} instances dropped at the tune point "
+          f"{tune_it}")
+    check(math.isfinite(summary["last_loss"]),
+          f"last loss {summary['last_loss']}")
+    for name in SCENE_FILES:
+        check(os.path.exists(os.path.join(out, name)),
+              f"the entry point wrote no {name}")
+    print(f"scene train: {SCENE_ITERS} iterations through the entry "
+          f"point in {summary['wall_s']:.2f} s, median iteration "
+          f"{summary['median_iter_ms']:.3f} ms (host clock, "
+          f"{len(summary['iter_ms'])} iterations without densify, "
+          f"evaluation or file writes); K1 {counts['K1']}, K2 "
+          f"{counts['K2']} launches; test PSNR {psnr[1]:.3f} -> "
+          f"{psnr[SCENE_ITERS]:.3f} dB (train views "
+          f"{summary['evals'][1]['train'][1]:.3f} -> "
+          f"{summary['evals'][SCENE_ITERS]['train'][1]:.3f}); dropped 0 "
+          f"at the tune point {tune_it}; last loss "
+          f"{summary['last_loss']:.6f}")
 
-        t0 = time.perf_counter()
-        res = subprocess.run(
-            [sys.executable, "-m", "neuralgaussiansplatting_torch.train",
-             "-s", src, "-m", out, "--iterations", str(SCENE_ITERS),
-             "--test_iterations", str(SCENE_ITERS), "--save_iterations",
-             str(SCENE_ITERS), "--start_checkpoint",
-             os.path.join(out, f"chkpnt{SCENE_CHECKPOINT}.ckpt")]
-            + SCENE_TRAIN_ARGS, cwd=os.path.dirname(os.path.abspath(__file__)),
-            capture_output=True, text=True, timeout=600)
-        resume_s = time.perf_counter() - t0
-        check(res.returncode == 0, f"resume exited {res.returncode}: "
-              f"{res.stdout[-1500:]}\n{res.stderr[-3000:]}")
-        check(f"at iteration {SCENE_CHECKPOINT}" in res.stdout,
-              f"the resume did not start at {SCENE_CHECKPOINT}")
-        last = [line for line in res.stdout.splitlines()
-                if line.startswith("last loss ")]
-        check(last and math.isfinite(float(last[-1].split()[2])),
-              f"the resume ended without a finite loss: {last}")
-        print(f"scene resume: a subprocess resumed at iteration "
-              f"{SCENE_CHECKPOINT} and ran to {SCENE_ITERS} in "
-              f"{resume_s:.2f} s; {last[-1].split(' [')[0]}; "
-              + "; ".join(line.split(" [")[0] for line in
-                          res.stdout.splitlines() if "Evaluating" in line))
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "neuralgaussiansplatting_torch.train",
+         "-s", src, "-m", out, "--iterations", str(SCENE_ITERS),
+         "--test_iterations", str(SCENE_ITERS), "--save_iterations",
+         str(SCENE_ITERS), "--start_checkpoint",
+         os.path.join(out, f"chkpnt{SCENE_CHECKPOINT}.ckpt")]
+        + SCENE_TRAIN_ARGS, cwd=os.path.dirname(os.path.abspath(__file__)),
+        capture_output=True, text=True, timeout=600)
+    resume_s = time.perf_counter() - t0
+    check(res.returncode == 0, f"resume exited {res.returncode}: "
+          f"{res.stdout[-1500:]}\n{res.stderr[-3000:]}")
+    check(f"at iteration {SCENE_CHECKPOINT}" in res.stdout,
+          f"the resume did not start at {SCENE_CHECKPOINT}")
+    last = [line for line in res.stdout.splitlines()
+            if line.startswith("last loss ")]
+    evals = re.findall(rf"\[ITER {SCENE_ITERS}\] Evaluating test: L1 "
+                       r"[0-9.]+ PSNR ([0-9.]+)", res.stdout)
+    check(len(evals) == 1, f"the resume printed {len(evals)} test "
+          f"evaluations at {SCENE_ITERS}")
+    resume_psnr = float(evals[0])
+    check(last and math.isfinite(float(last[-1].split()[2])),
+          f"the resume ended without a finite loss: {last}")
+    print(f"scene resume: a subprocess resumed at iteration "
+          f"{SCENE_CHECKPOINT} and ran to {SCENE_ITERS} in "
+          f"{resume_s:.2f} s; {last[-1].split(' [')[0]}; "
+          + "; ".join(line.split(" [")[0] for line in
+                      res.stdout.splitlines() if "Evaluating" in line))
 
-        colmap = os.path.join(tmp, "colmap")
-        t0 = time.perf_counter()
-        write_colmap_copy(src, colmap)
-        copy_s = time.perf_counter() - t0
-        reset_launch_counts()
-        t0 = time.perf_counter()
-        csummary = train_entry.main(
-            ["-s", colmap, "-m", os.path.join(tmp, "colmap_out"), "-r", "2",
-             "--eval", "--iterations", str(COLMAP_ITERS),
-             "--test_iterations", str(COLMAP_ITERS), "--save_iterations",
-             str(COLMAP_ITERS), "--disable_viewer", "--quiet"])
-        torch.cuda.synchronize()
-        colmap_s = time.perf_counter() - t0
-        counts = launch_counts()
-        check(counts["K1"] >= COLMAP_ITERS and counts["K2"] == COLMAP_ITERS,
-              f"the COLMAP run launched {counts}")
-        check(math.isfinite(csummary["last_loss"]),
-              f"COLMAP run: last loss {csummary['last_loss']}")
-        cpsnr = csummary["evals"][COLMAP_ITERS]["test"][1]
-        check(math.isfinite(cpsnr), f"COLMAP run: test PSNR {cpsnr}")
-        print(f"scene COLMAP: copy written in {copy_s:.2f} s; -r 2 "
-              f"{COLMAP_ITERS} iterations in {colmap_s:.2f} s including the "
-              f"scene load (native points3D parse: "
-              f"{'yes' if native.available() else 'no, Python'}), test PSNR "
-              f"{cpsnr:.3f}, last loss {csummary['last_loss']:.6f}")
+    colmap = os.path.join(tmp, "colmap")
+    t0 = time.perf_counter()
+    write_colmap_copy(src, colmap)
+    copy_s = time.perf_counter() - t0
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    csummary = train_entry.main(
+        ["-s", colmap, "-m", os.path.join(tmp, "colmap_out"), "-r", "2",
+         "--eval", "--iterations", str(COLMAP_ITERS),
+         "--test_iterations", str(COLMAP_ITERS), "--save_iterations",
+         str(COLMAP_ITERS), "--disable_viewer", "--quiet"])
+    torch.cuda.synchronize()
+    colmap_s = time.perf_counter() - t0
+    counts = launch_counts()
+    check(counts["K1"] >= COLMAP_ITERS and counts["K2"] == COLMAP_ITERS,
+          f"the COLMAP run launched {counts}")
+    check(math.isfinite(csummary["last_loss"]),
+          f"COLMAP run: last loss {csummary['last_loss']}")
+    cpsnr = csummary["evals"][COLMAP_ITERS]["test"][1]
+    check(math.isfinite(cpsnr), f"COLMAP run: test PSNR {cpsnr}")
+    print(f"scene COLMAP: copy written in {copy_s:.2f} s; -r 2 "
+          f"{COLMAP_ITERS} iterations in {colmap_s:.2f} s including the "
+          f"scene load (native points3D parse: "
+          f"{'yes' if native.available() else 'no, Python'}), test PSNR "
+          f"{cpsnr:.3f}, last loss {csummary['last_loss']:.6f}")
     print(f"scene card: {card_line()}")
+    return src, out, resume_psnr
+
+
+def write_lpips_weights(path: str, seed: int = 0):
+    """Seeded VGG16 weights in ``utils/lpips.py``'s schema: HWIO
+    convolutions drawn at He's scale, zero biases, per-channel lin vectors
+    in [0, 1/C)."""
+    rng = np.random.default_rng(seed)
+    out, cin, li = {}, 3, 0
+    for c, n_convs in lpips.VGG16_STAGES:
+        for _ in range(n_convs):
+            out[f"conv{li}_w"] = (rng.normal(size=(3, 3, cin, c))
+                                  * math.sqrt(2.0 / (9 * cin))).astype(
+                                      np.float32)
+            out[f"conv{li}_b"] = np.zeros(c, np.float32)
+            cin, li = c, li + 1
+    for i, (c, _) in enumerate(lpips.VGG16_STAGES):
+        out[f"lin{i}_w"] = (rng.random(c) / c).astype(np.float32)
+    np.savez(path, **out)
+
+
+def read_pngs(folder: str) -> dict:
+    return {name: image_io.read_png(os.path.join(folder, name))
+            for name in sorted(os.listdir(folder))}
+
+
+def phase_offline(tmp, src, out, run_psnr) -> dict:
+    """The port's offline tools and neural entry point on the scene phase's
+    files (module comment at OFFLINE_VIEWS). Returns the launches of K1 and
+    K4 in the render entry and of K3 in the neural entry."""
+    t_phase = time.perf_counter()
+    counts = {}
+    it = SCENE_ITERS
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    summary = render_entry.main(["-m", out] + RENDER_ARGS)
+    torch.cuda.synchronize()
+    render_s = time.perf_counter() - t0
+    launched = launch_counts()
+    views = sum(OFFLINE_VIEWS.values())
+    check(summary["iteration"] == it, f"render loaded {summary['iteration']}")
+    check({k: v["views"] for k, v in summary["splits"].items()}
+          == OFFLINE_VIEWS, f"render views {summary['splits']}")
+    check(launched["K1"] == views and launched["K4"] == 0,
+          f"render of {views} views launched {launched}")
+    check(summary["dropped"] == 0,
+          f"the renders dropped up to {summary['dropped']} instances")
+    for split, n in OFFLINE_VIEWS.items():
+        for kind in ("renders", "gt"):
+            d = os.path.join(out, split, f"ours_{it}", kind)
+            check(sorted(os.listdir(d)) == [f"{i:05d}.png" for i in range(n)],
+                  f"{d} holds {sorted(os.listdir(d))}")
+    counts["K1"] = launched["K1"]
+    loop_s = sum(v["seconds"] for v in summary["splits"].values())
+    png_s = sum(v["png_s"] for v in summary["splits"].values())
+    print(f"offline render: {views} views ({OFFLINE_VIEWS}) through the "
+          f"render entry point ({' '.join(RENDER_ARGS)}) in {render_s:.2f} s "
+          f"({render_s - loop_s:.2f} s loading the scene and model), "
+          f"{1e3 * loop_s / views:.2f} ms per view, of which "
+          f"{1e3 * png_s / views:.2f} ms convert and write its render and GT "
+          f"PNGs (host clock); K1 {launched['K1']}, K4 {launched['K4']} "
+          f"launches; largest dropped 0, densest tile "
+          f"{max(v['max_per_tile'] for v in summary['splits'].values())}, "
+          f"most instances "
+          f"{max(v['num_rendered'] for v in summary['splits'].values())}")
+
+    weights = os.path.join(tmp, "lpips_vgg.npz")
+    write_lpips_weights(weights)
+    os.environ["NGS_LPIPS_WEIGHTS"] = weights
+    lpips._load_params.cache_clear()
+    try:
+        t0 = time.perf_counter()
+        scores = metrics_entry.main(["-m", out])[out][f"ours_{it}"]
+        metrics_s = time.perf_counter() - t0
+        check(all(math.isfinite(scores[k]) for k in ("SSIM", "PSNR", "LPIPS")),
+              f"metrics: {scores}")
+        check(abs(scores["PSNR"] - run_psnr) <= OFFLINE_PSNR_GATE,
+              f"metrics' PSNR {scores['PSNR']:.4f} lies more than "
+              f"{OFFLINE_PSNR_GATE} dB from the run's {run_psnr:.2f}")
+        fn = lpips.lpips_fn("vgg", device="cuda")
+        test_dir = os.path.join(out, "test", f"ours_{it}")
+        img = image_io.read_png(os.path.join(test_dir, "renders", "00000.png"))
+        gt = image_io.read_png(os.path.join(test_dir, "gt", "00000.png"))
+        a, b = (torch.from_numpy(np.ascontiguousarray(
+            x[..., :3].astype(np.float32).transpose(2, 0, 1) / 255.0)).cuda()
+                for x in (img, gt))
+        self_dist = fn(a, a)
+        check(abs(self_dist) <= 1e-6, f"LPIPS of an image to itself "
+              f"{self_dist}")
+        fn(a, b)
+        t0 = time.perf_counter()
+        for _ in range(5):
+            fn(a, b)
+        lpips_ms = (time.perf_counter() - t0) * 1e3 / 5
+    finally:
+        del os.environ["NGS_LPIPS_WEIGHTS"]
+        lpips._load_params.cache_clear()
+    print(f"offline metrics: {OFFLINE_VIEWS['test']} test views scored in "
+          f"{metrics_s:.2f} s: SSIM {scores['SSIM']:.5f}, PSNR "
+          f"{scores['PSNR']:.4f} dB (the run's test PSNR at {it}: "
+          f"{run_psnr:.2f}), LPIPS {scores['LPIPS']:.6f} (synthetic "
+          f"weights); LPIPS {lpips_ms:.2f} ms per {img.shape[1]}x"
+          f"{img.shape[0]} pair (host clock, mean of 5), {self_dist:.1e} to "
+          f"itself")
+
+    seq_renders = read_pngs(os.path.join(test_dir, "renders"))
+    reset_launch_counts()
+    summary = render_entry.main(["-m", out] + PALLAS_RENDER_ARGS)
+    torch.cuda.synchronize()
+    launched = launch_counts()
+    check(launched["K4"] == OFFLINE_VIEWS["test"] and launched["K1"] == 0,
+          f"the pallas render of {OFFLINE_VIEWS['test']} views launched "
+          f"{launched}")
+    check(summary["dropped"] == 0,
+          f"the pallas renders dropped up to {summary['dropped']}")
+    counts["K4"] = launched["K4"]
+    diffs = [np.abs(image.astype(np.int16) - seq_renders[name])
+             for name, image in read_pngs(os.path.join(test_dir,
+                                                       "renders")).items()]
+    print(f"offline render {' '.join(PALLAS_RENDER_ARGS)}: "
+          f"densest tile {summary['splits']['test']['max_per_tile']}, most "
+          f"instances {summary['splits']['test']['num_rendered']}; "
+          f"{launched['K4']} K4 launches, "
+          f"K1 0, dropped 0; its test PNGs against the seq ones: max "
+          f"{max(int(d.max()) for d in diffs)} levels, "
+          f"{np.mean([(d > 0).mean() for d in diffs]):.6f} of the values "
+          f"differ")
+
+    out_n = os.path.join(tmp, "out_neural")
+    ckpt_path = os.path.join(out, f"chkpnt{SCENE_CHECKPOINT}.ckpt")
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    summary = trainn_entry.main(
+        ["-s", src, "-m", out_n, "--eval", "--start_checkpoint", ckpt_path,
+         "--sw", "2", "--iterations", str(TRAINN_ITERS), "--test_iterations",
+         "1", str(TRAINN_ITERS), "--video_interval", str(TRAINN_ITERS),
+         "--analysis_interval", str(TRAINN_ANALYSIS), "--quiet"])
+    torch.cuda.synchronize()
+    counts["K3"] = zbuffer_pallas.launches
+    check(counts["K3"] >= TRAINN_ITERS,
+          f"{TRAINN_ITERS} neural iterations launched K3 {counts['K3']} times")
+    check(math.isfinite(summary["last_loss"]),
+          f"neural entry: last loss {summary['last_loss']}")
+    psnr = {i: summary["evals"][i]["test"][1] for i in (1, TRAINN_ITERS)}
+    check(psnr[TRAINN_ITERS] >= psnr[1] + TRAINN_PSNR_GAIN,
+          f"neural test PSNR {psnr[1]:.3f} -> {psnr[TRAINN_ITERS]:.3f} dB "
+          f"gained less than {TRAINN_PSNR_GAIN} dB")
+    video = os.path.join(out_n, "video", f"iter_{TRAINN_ITERS}")
+    frames = os.listdir(os.path.join(video, "rgb"))
+    archives = [f for f in os.listdir(video) if f.endswith(".npz")]
+    check(len(frames) == summary["video_frames"] == VIDEO_FRAMES
+          and len(archives) == VIDEO_ARCHIVES,
+          f"video: {len(frames)} frames, archives {archives}")
+    analysis = os.path.join(out_n, "feature_analysis")
+    with open(os.path.join(analysis, "history.csv")) as f:
+        rows = f.read().splitlines()[1:]
+    plots = [f for f in os.listdir(analysis) if f.endswith(".png")]
+    check(len(rows) == TRAINN_ITERS // TRAINN_ANALYSIS,
+          f"history.csv holds {len(rows)} rows")
+    check(bool(plots) == summary["plots"],
+          f"plots {'written' if summary['plots'] else 'skipped'}, "
+          f"{len(plots)} files")
+
+    ckpt = torch.load(ckpt_path, weights_only=True)
+    alive = ckpt["gstate"]["alive"]
+    want = gm.normalize_params(gm.GaussianParams(**ckpt["params"]))
+    got, _, _ = gm.load_ply(os.path.join(
+        out_n, "point_cloud", f"iteration_{TRAINN_ITERS}", "point_cloud.ply"),
+        device="cpu")
+    for field in ("xyz", "scaling", "rotation", "opacity"):
+        check(torch.equal(getattr(got, field), getattr(want, field)[alive]),
+              f"the neural run moved the frozen {field}")
+    check(not torch.equal(got.features, want.features[alive]),
+          "the neural run left the features as the checkpoint's")
+    print(f"offline trainn: --sw 2 from {os.path.basename(ckpt_path)} "
+          f"({int(alive.sum())} Gaussians), {TRAINN_ITERS} iterations through "
+          f"the neural entry point in {summary['wall_s']:.2f} s, median "
+          f"iteration {summary['median_iter_ms']:.3f} ms (host clock, "
+          f"{len(summary['iter_ms'])} iterations without evaluation, video, "
+          f"analysis or writes); K3 {counts['K3']} launches; test PSNR "
+          f"{psnr[1]:.3f} -> {psnr[TRAINN_ITERS]:.3f} dB (train views "
+          f"{summary['evals'][1]['train'][1]:.3f} -> "
+          f"{summary['evals'][TRAINN_ITERS]['train'][1]:.3f}); video "
+          f"{len(frames)} frames and {len(archives)} archives in "
+          f"{summary['video_s']:.2f} s; feature analysis "
+          f"{summary['analysis_s']:.2f} s, plots "
+          f"{'written' if summary['plots'] else 'skipped (no matplotlib)'}; "
+          f"geometry bit-equal to the checkpoint's, features trained")
+    print(f"offline: the phase took {time.perf_counter() - t_phase:.2f} s; "
+          f"card: {card_line()}")
+    return counts
 
 
 def phase_breakdown(params, state):
@@ -2133,7 +2368,8 @@ def main():
     phase_breakdown(loaded, lstate)
     phase_train(loaded, lstate, rows)
     phase_trainer()
-    phase_scene(rows)
+    with tempfile.TemporaryDirectory() as tmp:
+        offline = phase_offline(tmp, *phase_scene(tmp, rows))
 
     pallas = phase_pallas_serve(params, state)
     pallas_32, _ = sized_settings(PALLAS_PROBE_32, params, state.alive,
@@ -2162,6 +2398,9 @@ def main():
                      chained_plain_ms=result["plain_ms"],
                      chained_library_ms=result["repeat_interleave_ms"])
 
+    rows["K1"]["render_entry_launches"] = offline["K1"]
+    rows["K4"]["render_entry_launches"] = offline["K4"]
+    rows["K3"]["trainn_launches"] = offline["K3"]
     print(json.dumps({"kernels": [rows[k] for k in sorted(rows)]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

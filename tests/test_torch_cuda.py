@@ -900,3 +900,88 @@ def test_k7_probes_match_plain_versions_on_gpu():
             torch.cuda.synchronize()
             assert probes.launches == before + 1, name
             assert torch.equal(got, plain(x)), name
+
+
+def _demo_model(tmp_path, iterations):
+    """(scene, model) of a 64x64 demo-tool scene trained ``iterations``
+    iterations by the port's train entry point (checkpoint at the end)."""
+    from neuralgaussiansplatting_torch.tools import make_demo_scene
+    from neuralgaussiansplatting_torch.train import __main__ as entry
+    src, out = str(tmp_path / "scene"), str(tmp_path / "out")
+    make_demo_scene.main(["--out", src, "--size", "64", "--views", "8",
+                          "--n_gaussians", "2000", "--init_points", "1000"])
+    entry.main(["-s", src, "-m", out, "--eval", "--iterations",
+                str(iterations), "--test_iterations", str(iterations),
+                "--save_iterations", str(iterations),
+                "--checkpoint_iterations", str(iterations),
+                "--disable_viewer", "--quiet"])
+    return src, out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sw,mixed", [(1, False), (2, True), (3, False)])
+def test_neural_entry_point_on_gpu(tmp_path, sw, mixed):
+    """The port's neural entry point on a 64x64 demo-tool scene from the
+    train entry point's checkpoint: 10 iterations through K3 (once per
+    iteration, plus the evaluation and video renders), a finite loss and
+    PSNR, the video frames, the feature statistics and the model saved."""
+    _need_gpu()
+    from neuralgaussiansplatting_torch import trainn
+    src, out = _demo_model(tmp_path, 10)
+    k3 = zbuffer_pallas.launches
+    summary = trainn.main(
+        ["-s", src, "-m", str(tmp_path / "neural"), "--eval", "--sw",
+         str(sw), "--iterations", "10", "--test_iterations", "10",
+         "--video_interval", "10", "--analysis_interval", "5",
+         "--start_checkpoint", os.path.join(out, "chkpnt10.ckpt"), "--quiet"]
+        + (["--mixed_precision"] if mixed else []))
+    assert zbuffer_pallas.launches - k3 >= 10 + summary["video_frames"]
+    assert summary["video_frames"] == 60
+    assert math.isfinite(summary["last_loss"])
+    assert all(math.isfinite(v) for split in summary["evals"][10].values()
+               for v in split)
+    neural = tmp_path / "neural"
+    assert (neural / "point_cloud" / "iteration_10" /
+            "point_cloud.ply").exists()
+    assert (neural / "feature_analysis" / "history.csv").exists()
+    assert len(os.listdir(neural / "video" / "iter_10" / "rgb")) == 60
+
+
+@pytest.mark.cuda
+def test_render_and_metrics_entry_points_on_gpu(tmp_path, monkeypatch):
+    """The port's render and metrics entry points on a 30-iteration train
+    run: K1 once per view (8 train, 2 test), no drops, the PNG trees, and
+    finite SSIM, PSNR and LPIPS (seeded synthetic VGG weights)."""
+    _need_gpu()
+    from neuralgaussiansplatting_torch import metrics, render as render_entry
+    from neuralgaussiansplatting_torch.utils import lpips
+    _, out = _demo_model(tmp_path, 30)
+    k1 = blend_seq.launches
+    summary = render_entry.main(["-m", out])
+    assert blend_seq.launches - k1 == 10
+    assert summary["dropped"] == 0 and summary["iteration"] == 30
+    for split, n in (("train", 8), ("test", 2)):
+        for kind in ("renders", "gt"):
+            assert len(os.listdir(os.path.join(out, split, "ours_30",
+                                               kind))) == n
+
+    rng = np.random.default_rng(0)
+    weights, cin, li = {}, 3, 0
+    for c, n_convs in lpips.VGG16_STAGES:
+        for _ in range(n_convs):
+            weights[f"conv{li}_w"] = (rng.normal(size=(3, 3, cin, c))
+                                      * math.sqrt(2 / (9 * cin))).astype(
+                                          np.float32)
+            weights[f"conv{li}_b"] = np.zeros(c, np.float32)
+            cin, li = c, li + 1
+    for i, (c, _) in enumerate(lpips.VGG16_STAGES):
+        weights[f"lin{i}_w"] = np.full(c, 1.0 / c, np.float32)
+    path = str(tmp_path / "lpips_vgg.npz")
+    np.savez(path, **weights)
+    monkeypatch.setenv("NGS_LPIPS_WEIGHTS", path)
+    lpips._load_params.cache_clear()
+    try:
+        scores = metrics.main(["-m", out])[out]["ours_30"]
+    finally:
+        lpips._load_params.cache_clear()
+    assert all(math.isfinite(scores[k]) for k in ("SSIM", "PSNR", "LPIPS"))
