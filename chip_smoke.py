@@ -46,6 +46,18 @@ full-width decoders): the tiled z-buffer against the per-pixel sort oracle;
 a 64x64 card-vs-CPU reference; ``render1/2/3`` from four cameras; 10 steps
 of ``train.neural_loop.NeuralTrainer(sw=2)``.
 
+Multi-step, parallel and viewer paths: ``Trainer.step_block`` (5 blocks of
+4) bit-equal to 20 ``Trainer.step``s at the bench width; on a world of one
+NCCL rank (a ``file://`` store), ``DPTrainer`` with a batch of 4 (one
+step's densification statistics against 4 single-camera iterations, then
+10 steps) and the 800x800 frame in 5 strips through
+``parallel.render_sp.make_sharded_renderer`` against the monolithic
+render; the train entry point with ``--steps_per_call 10`` over the scene
+phase's dataset (its saved PLY bit-equal to the ``--steps_per_call 1``
+run's) and serving the SIBR viewer protocol to a client thread (two
+800x800 frames byte-equal to direct renders); and two ``NeuralTrainer(sw=2)``
+runs that must repeat to the bit (5 steps on one view, 100 over eight).
+
 Tools: K6 against its plain version and ``binning._expand_runs`` at the
 decode tool's two workloads (100k runs over 655,360 slots; 5M over
 8,388,608) and on an edge case, K7's ten probes against theirs; then the
@@ -61,21 +73,26 @@ before that line. Needs a CUDA device and nvcc (CUDA_HOME or
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
+import hashlib
 import json
 import math
 import os
 import re
 import statistics
+import socket
 import subprocess
 import sys
 import struct
 import tempfile
+import threading
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from neuralgaussiansplatting_torch import demo
 from neuralgaussiansplatting_torch import native
@@ -97,6 +114,12 @@ from neuralgaussiansplatting_torch.ops import blend as blend_plain
 from neuralgaussiansplatting_torch.ops import rasterize as rast
 from neuralgaussiansplatting_torch.ops import zbuffer_pallas
 from neuralgaussiansplatting_torch.ops import projection as proj
+from neuralgaussiansplatting_torch.parallel import distributed
+from neuralgaussiansplatting_torch.parallel import mesh as mesh_lib
+from neuralgaussiansplatting_torch.parallel.render_sp import (
+    make_sharded_renderer, strip_cameras)
+from neuralgaussiansplatting_torch.parallel.train_step import (
+    DPTrainer, make_dp_train_step, stack_cameras)
 from neuralgaussiansplatting_torch.scene import colmap as colmap_io
 from neuralgaussiansplatting_torch.scene import image_io
 from neuralgaussiansplatting_torch.scene import ply as ply_io
@@ -105,12 +128,14 @@ from neuralgaussiansplatting_torch.tools import exp_decode_proto
 from neuralgaussiansplatting_torch.tools import exp_mosaic_probe
 from neuralgaussiansplatting_torch.tools import make_demo_scene
 from neuralgaussiansplatting_torch.train import __main__ as train_entry
+from neuralgaussiansplatting_torch.train import densify as dens
 from neuralgaussiansplatting_torch.train import loop
 from neuralgaussiansplatting_torch.train import neural_loop
 from neuralgaussiansplatting_torch.train import optim
 from neuralgaussiansplatting_torch.utils import losses
 from neuralgaussiansplatting_torch.utils import lpips
 from neuralgaussiansplatting_torch.utils.timing import cuda_ms, device_ms
+from neuralgaussiansplatting_torch.viewer import network_gui
 
 W = H = 800
 N = 100_000
@@ -281,6 +306,25 @@ CHAIN_KERNELS = {"classic_fb": ("K4", "K5"), "classic_fb_seq": ("K1", "K2"),
                  "classic_fwd_seq": ("K1",), "classic_fwd1080_seq": ("K1",),
                  "classic_fwd1080": ("K4",), "neural_fb": ("K3",),
                  "neural_fb_bf16": ("K3",)}
+# The multi-step dispatch: Trainer.step_block over MULTISTEP_BLOCKS blocks
+# of MULTISTEP_BLOCK iterations against as many Trainer.steps at the bench
+# width; the train entry point with --steps_per_call MULTISTEP_SPC (a
+# divisor of the scene phase's densification and tune intervals, 100).
+MULTISTEP_BLOCKS, MULTISTEP_BLOCK, MULTISTEP_SPC = 5, 4, 10
+# Data and strip parallelism on a world of one NCCL rank: DPTrainer with a
+# batch of DP_BATCH orbit cameras for DP_STEPS steps; the 800x800 frame in
+# SP_STRIPS strips of 160 rows (five 32-row tile rows each).
+DP_BATCH, DP_STEPS, SP_STRIPS = 4, 10, 5
+SP_ATOL = 1e-5    # tests/test_parallel.py:49, held at 48x64
+SP_ULPS = 8       # a strip's pixel rows against the frame's, in ulps of H
+# The viewer: the train entry point resumed from the scene phase's
+# checkpoint serves two frames, then trains VIEWER_ITERS iterations.
+VIEWER_ITERS = 30
+# Neural repeatability: NeuralTrainer(sw=2) runs of NEURAL_REPEAT_SHORT
+# steps on one view and of NEURAL_REPEAT_LONG steps over eight (the length
+# at which two runs with cuDNN's default algorithms and F.pad's reflect
+# padding were seen to part).
+NEURAL_REPEAT_SHORT, NEURAL_REPEAT_LONG = 5, 100
 
 
 def fail(msg: str):
@@ -1070,7 +1114,7 @@ def phase_scene(tmp, rows):
     resumes from the halfway checkpoint, and a COLMAP-layout copy trains
     COLMAP_ITERS iterations at -r 2. Returns (scene directory, model
     directory, the resumed run's test PSNR at SCENE_ITERS, which is the
-    saved model's)."""
+    saved model's, and the SHA-256 of the first run's saved PLY)."""
     src, out = os.path.join(tmp, "scene"), os.path.join(tmp, "out")
     t0 = time.perf_counter()
     make_demo_scene.main(["--out", src] + SCENE_TOOL_ARGS)
@@ -1108,6 +1152,8 @@ def phase_scene(tmp, rows):
           f"{SCENE_ITERS} iterations launched {counts}")
     check(counts["K4"] == counts["K5"] == 0,
           f"the seq entry point reached the pallas kernels: {counts}")
+    # the resume below overwrites it
+    ply_sha = file_sha(os.path.join(out, SCENE_FILES[0]))
     rows["K1"]["scene_launches"] = counts["K1"]
     rows["K2"]["scene_launches"] = counts["K2"]
     psnr = {it: summary["evals"][it]["test"][1]
@@ -1190,7 +1236,7 @@ def phase_scene(tmp, rows):
           f"{'yes' if native.available() else 'no, Python'}), test PSNR "
           f"{cpsnr:.3f}, last loss {csummary['last_loss']:.6f}")
     print(f"scene card: {card_line()}")
-    return src, out, resume_psnr
+    return src, out, resume_psnr, ply_sha
 
 
 def write_lpips_weights(path: str, seed: int = 0):
@@ -2349,6 +2395,524 @@ def phase_tools():
     return k6, k7, decoded
 
 
+
+# -- the parallel, multi-step, viewer and repeatability phases ------------
+
+def state_tensors(ts) -> list:
+    """Every tensor of a TrainState, in a fixed order."""
+    return (list(ts.params) + list(ts.gstate)
+            + [t for name in sorted(ts.opt_state)
+               for t in (ts.opt_state[name].mu, ts.opt_state[name].nu)])
+
+
+def max_diff(a: list, b: list) -> float:
+    return max(((x.double() - y.double()).abs().max().item()
+                if x.numel() else 0.0) for x, y in zip(a, b))
+
+
+def phase_multistep_trainer(params, state):
+    """``Trainer.step_block`` over MULTISTEP_BLOCKS blocks of
+    MULTISTEP_BLOCK against as many ``Trainer.step``s, on the perturbed
+    bench cloud towards its four orbit renders, white background: the
+    final state must be bit-equal. Returns K1's and K2's launches in the
+    block run."""
+    cams, gts, _ = orbit_targets(params, state)
+    iters = MULTISTEP_BLOCKS * MULTISTEP_BLOCK
+
+    def trainer():
+        model = gm.GaussianModel(SH_DEGREE)
+        model.params, model.state = perturbed(params, 12), state
+        model.active_sh_degree = SH_DEGREE
+        return loop.Trainer(model, settings=SETTINGS, white_background=True,
+                            cameras_extent=4.4)
+
+    stepped = trainer()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for it in range(1, iters + 1):
+        stepped.step(cams[it % 4], gts[it % 4], it)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / iters
+
+    blocked = trainer()
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    for blk in range(MULTISTEP_BLOCKS):
+        first = blk * MULTISTEP_BLOCK + 1
+        idx = [it % 4 for it in range(first, first + MULTISTEP_BLOCK)]
+        metrics = blocked.step_block(
+            stack_cameras([cams[i] for i in idx]),
+            torch.stack([gts[i] for i in idx]), first)
+    torch.cuda.synchronize()
+    block_ms = (time.perf_counter() - t0) * 1e3 / iters
+    counts = launch_counts()
+    check(counts["K1"] == iters and counts["K2"] == iters,
+          f"{iters} block iterations launched {counts}")
+    check(blocked.ts.step == stepped.ts.step == iters,
+          f"steps {blocked.ts.step} / {stepped.ts.step}")
+    a, b = state_tensors(blocked.ts), state_tensors(stepped.ts)
+    equal = all(torch.equal(x, y) for x, y in zip(a, b))
+    check(equal, f"step_block's state differs from the steps' by max |d| "
+          f"{max_diff(a, b)}")
+    check(math.isfinite(metrics["loss"].item()), "block loss not finite")
+    print(f"multistep trainer: {MULTISTEP_BLOCKS} blocks of "
+          f"{MULTISTEP_BLOCK} bit-equal to {iters} Trainer.steps; "
+          f"{block_ms:.3f} ms per iteration in blocks, {step_ms:.3f} ms "
+          f"stepped (host clock, synchronised at the ends); K1 "
+          f"{counts['K1']}, K2 {counts['K2']} launches")
+    return counts["K1"], counts["K2"]
+
+
+def phase_multistep_entry(tmp, src, ply_sha):
+    """The train entry point with ``--steps_per_call`` MULTISTEP_SPC over
+    the scene phase's dataset for SCENE_ITERS iterations, evaluated at the
+    end only so the blocks tile the run: its saved PLY must be bit-equal
+    to the ``--steps_per_call 1`` run's (``ply_sha``). Returns K1's and
+    K2's launches."""
+    out = os.path.join(tmp, "out_spc")
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    summary = train_entry.main(
+        ["-s", src, "-m", out, "--iterations", str(SCENE_ITERS),
+         "--test_iterations", str(SCENE_ITERS), "--save_iterations",
+         str(SCENE_ITERS), "--steps_per_call", str(MULTISTEP_SPC),
+         "--quiet"] + SCENE_TRAIN_ARGS)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    check(counts["K2"] == SCENE_ITERS and counts["K1"] >= SCENE_ITERS,
+          f"--steps_per_call {MULTISTEP_SPC}: {counts}")
+    sha = file_sha(os.path.join(out, SCENE_FILES[0]))
+    check(sha == ply_sha, f"--steps_per_call {MULTISTEP_SPC} saved a PLY "
+          f"unlike the --steps_per_call 1 run's")
+    psnr = summary["evals"][SCENE_ITERS]["test"][1]
+    print(f"multistep entry: --steps_per_call {MULTISTEP_SPC}, "
+          f"{SCENE_ITERS} iterations in {summary['wall_s']:.2f} s, median "
+          f"{summary['median_iter_ms']:.3f} ms per iteration (host clock, "
+          f"per block); the saved PLY bit-equal to --steps_per_call 1's; "
+          f"test PSNR {psnr:.3f}; K1 {counts['K1']}, K2 {counts['K2']} "
+          f"launches")
+    return counts["K1"], counts["K2"]
+
+
+def file_sha(path: str) -> str:
+    with open(path, "rb") as f:
+        return hashlib.sha256(f.read()).hexdigest()
+
+
+def sequential_stats(params, state, cams, gts, bg, settings):
+    """The densification statistics of one single-camera iteration per
+    camera, accumulated in turn (what a DP batch must equal)."""
+    stats = state
+    n = params.xyz.shape[0]
+    for cam, gt in zip(cams, gts):
+        off = params.xyz.new_zeros((n, 2), requires_grad=True)
+        out = render(cam, params, state.alive, SH_DEGREE, bg, settings,
+                     means2d_offset=off)
+        loss = losses.photometric_loss(out["render"], gt, 0.2)
+        goff, = torch.autograd.grad(loss, [off])
+        stats = dens.add_densification_stats(stats, out["radii"], goff)
+    return stats
+
+
+def phase_dp(params, state, mesh):
+    """``DPTrainer`` on a world of one NCCL rank, batch DP_BATCH at the
+    bench width: one step's statistics against DP_BATCH single-camera
+    iterations (denom exact; the gradient accumulator at JAX's rtol 1e-4 /
+    atol 1e-7), then DP_STEPS steps from the perturbed cloud (finite, loss
+    falling). Returns K1's and K2's launches in the DP_STEPS steps."""
+    cams, gts, bg = orbit_targets(params, state)
+    cams, gts = cams[:DP_BATCH], gts[:DP_BATCH]
+    start = perturbed(params, 12)
+    tx = optim.make_optimizer(optim.OptimizationParams(), 1.0)
+    ts = loop.TrainState(start, state, tx.init(start), 0)
+    step = make_dp_train_step(mesh, tx, sh_degree=SH_DEGREE,
+                              settings=SETTINGS)
+    batch = stack_cameras(cams)
+    ts1, _ = step(ts, batch, torch.stack(gts), bg)
+    want = sequential_stats(start, state, cams, gts, bg, SETTINGS)
+    check(torch.equal(ts1.gstate.denom, want.denom),
+          "DP denom differs from the sequential iterations'")
+    got, ref = ts1.gstate.xyz_gradient_accum, want.xyz_gradient_accum
+    close = torch.allclose(got, ref, rtol=1e-4, atol=1e-7)
+    check(close, f"DP gradient accumulator off by max |d| "
+          f"{(got - ref).abs().max().item()}")
+    check(torch.equal(ts1.gstate.max_radii2d, want.max_radii2d),
+          "DP max radii differ")
+
+    model = gm.GaussianModel(SH_DEGREE)
+    model.params, model.state = start, state
+    model.active_sh_degree = SH_DEGREE
+    trainer = DPTrainer(model, mesh, settings=SETTINGS, batch_size=DP_BATCH,
+                        cameras_extent=4.4)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    loss, ms = [], []
+    for _ in range(DP_STEPS):
+        t0 = time.perf_counter()
+        loss.append(trainer.step(cams, gts)["loss"].item())
+        ms.append((time.perf_counter() - t0) * 1e3)
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(counts["K1"] == counts["K2"] == DP_STEPS * DP_BATCH,
+          f"{DP_STEPS} DP steps of {DP_BATCH} launched {counts}")
+    check(all(math.isfinite(x) for x in loss), f"DP loss {loss}")
+    check(loss[-1] < loss[0], f"DP loss did not fall: {loss}")
+    for name, t in trainer.ts.params._asdict().items():
+        check(torch.isfinite(t).all().item(), f"DP {name} not finite")
+    print(f"dp: NCCL world {mesh_lib.world_size()}, batch {DP_BATCH}; "
+          f"stats of one step equal {DP_BATCH} sequential iterations "
+          f"(denom exact, accumulator max |d| "
+          f"{(got - ref).abs().max().item():.3e}); {DP_STEPS} steps loss "
+          f"{loss[0]:.5f} -> {loss[-1]:.5f}, median "
+          f"{statistics.median(ms[1:]):.3f} ms per step (host clock, "
+          f"synchronised by the loss read); peak memory {peak:.2f} GiB; K1 "
+          f"{counts['K1']}, K2 {counts['K2']} launches")
+    return counts["K1"], counts["K2"]
+
+
+def strip_rounding(params, state, cam, n_strips):
+    """How the strip cameras' float32 projection rows move the Gaussians'
+    preprocess, over the Gaussians that a strip and the frame both keep:
+    (the largest gap between a pixel row in a strip, plus the strip's
+    first row, and in the frame, in ulps of the frame's height (float32);
+    {output: max |d|} of every other output (x, depth, radius, conic,
+    opacity, colour) that is not bit-equal in some strip)."""
+    def pre(c):
+        return pp.preprocess_gaussians(
+            params.xyz, gm.get_scaling(params), gm.get_rotation(params),
+            gm.get_opacity(params, state.alive), gm.get_features(params),
+            SH_DEGREE, c, SETTINGS.block_x, SETTINGS.block_y,
+            tight=SETTINGS.tight_culling)
+
+    full = pre(cam)
+    strips = strip_cameras(cam, n_strips)
+    h = torch.tensor(float(cam.height))
+    unit = (torch.nextafter(h, torch.tensor(math.inf)) - h).item()
+    worst, apart = 0.0, {}
+    for s in range(n_strips):
+        part = pre(strips.camera(s))
+        # a Gaussian away from the strip is culled there, as it should be
+        vis = (full.radii > 0) & (part.radii > 0)
+        gap = part.means2d[vis, 1] + s * strips.height - full.means2d[vis, 1]
+        worst = max(worst, gap.abs().max().item() / unit)
+        for k in ("depths", "radii", "conic", "opacity", "rgb", "means2d"):
+            a, b = getattr(part, k)[vis], getattr(full, k)[vis]
+            if k == "means2d":
+                a, b = a[:, 0], b[:, 0]
+            if not torch.equal(a, b):
+                apart[k] = max(apart.get(k, 0.0),
+                               (a.double() - b.double()).abs().max().item())
+    return worst, apart
+
+
+def phase_sp(params, state, mesh):
+    """The 800x800 frame in SP_STRIPS strips through
+    ``make_sharded_renderer`` on the mesh against the monolithic render.
+    A strip camera is JAX's asymmetric frustum, whose float32 projection
+    row rounds each Gaussian's pixel row apart from the frame's by an ulp
+    or two, so the gates are: every preprocess output but that row
+    bit-equal and the row within SP_ULPS ulps of H; binning alike (the
+    strips' instances add up to the frame's); the image bit-equal, else
+    within BAND_GATE (the repo's gate for two renders that differ by
+    design) with its differences printed. Returns K1's launches per frame."""
+    cam = demo.demo_camera(W, H)
+    bg = torch.zeros(3, device="cuda")
+    renderer = make_sharded_renderer(mesh, sh_degree=SH_DEGREE,
+                                     settings=SETTINGS, n_strips=SP_STRIPS)
+    with torch.no_grad():
+        worst, apart = strip_rounding(params, state, cam, SP_STRIPS)
+        check(not apart, f"a strip camera changed preprocess outputs "
+              f"other than the pixel row (max |d|): {apart}")
+        check(worst <= SP_ULPS, f"a strip's pixel rows lie {worst} ulps "
+              f"of the frame height from the frame's")
+        mono = render(cam, params, state.alive, SH_DEGREE, bg,
+                      SETTINGS)["render"]
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        frame = renderer(cam, params, state.alive, bg)
+        torch.cuda.synchronize()
+        launches = blend_seq.launches
+        check(launches == SP_STRIPS,
+              f"a {SP_STRIPS}-strip frame launched K1 {launches} times")
+        check(frame.shape == mono.shape, f"frame {tuple(frame.shape)}")
+        strips = strip_cameras(cam, SP_STRIPS)
+        counts = [int(render(strips.camera(i), params, state.alive,
+                             SH_DEGREE, bg, SETTINGS)["num_rendered"])
+                  for i in range(SP_STRIPS)]
+        whole = int(render(cam, params, state.alive, SH_DEGREE, bg,
+                           SETTINGS)["num_rendered"])
+        check(sum(counts) == whole, f"strip instances {counts} (sum "
+              f"{sum(counts)}) against the frame's {whole}")
+        diff = (frame - mono).abs()
+        if torch.equal(frame, mono):
+            verdict = "bit-equal to the monolithic render"
+        else:
+            check(diff.max().item() <= BAND_GATE[0]
+                  and diff.mean().item() <= BAND_GATE[1],
+                  f"the strip frame differs from the monolithic render by "
+                  f"max |d| {diff.max().item()}, mean "
+                  f"{diff.mean().item()}")
+            verdict = (f"not bit-equal: {int((diff > 0).sum())} of "
+                       f"{diff.numel()} values differ, "
+                       f"{int((diff > SP_ATOL).sum())} by more than JAX's "
+                       f"atol {SP_ATOL}; max |d| {diff.max().item():.3e}, "
+                       f"mean {diff.mean().item():.3e} (the strip rows' "
+                       f"rounding, at most {worst:.2f} ulps of the frame "
+                       f"height, moves each blend)")
+
+        def timed(fn, reps=10):
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3 / reps
+
+        frame_ms = timed(lambda: renderer(cam, params, state.alive, bg))
+        mono_ms = timed(lambda: render(cam, params, state.alive, SH_DEGREE,
+                                       bg, SETTINGS))
+    print(f"sp: {SP_STRIPS} strips of {H // SP_STRIPS} rows through "
+          f"make_sharded_renderer (NCCL world {mesh_lib.world_size()}), "
+          f"{verdict}; preprocess bit-equal but for the pixel rows; "
+          f"instances {counts} add up to the frame's {whole}; K1 "
+          f"{launches} launches per frame; frame {frame_ms:.3f} ms, "
+          f"monolithic render {mono_ms:.3f} ms (host clock, mean of 10, "
+          f"synchronised)")
+    return launches
+
+
+def viewer_message(cam, train: bool) -> bytes:
+    """A SIBR remote-viewer request for ``cam``'s view: the transposed
+    storage with the view's columns 1, 2 and the projection's column 1
+    negated, as ``network_gui.receive`` undoes."""
+    view = cam.view.cpu().numpy().T.copy()
+    view[:, 1] *= -1
+    view[:, 2] *= -1
+    fp = cam.full_proj.cpu().numpy().T.copy()
+    fp[:, 1] *= -1
+    msg = {"resolution_x": cam.width, "resolution_y": cam.height,
+           "train": train, "fov_x": 2 * math.atan(cam.tan_fovx),
+           "fov_y": 2 * math.atan(cam.tan_fovy), "z_near": 0.01,
+           "z_far": 100.0, "shs_python": False, "rot_scale_python": False,
+           "keep_alive": True, "scaling_modifier": 1.0,
+           "view_matrix": view.reshape(-1).tolist(),
+           "view_projection_matrix": fp.reshape(-1).tolist()}
+    payload = json.dumps(msg).encode()
+    return len(payload).to_bytes(4, "little") + payload
+
+
+def parsed_camera(wire: bytes):
+    """The camera ``NetworkGUI.receive`` makes of a request."""
+    gui = network_gui.NetworkGUI("127.0.0.1", 0)
+    peer, gui.conn = socket.socketpair()
+    try:
+        peer.sendall(wire)
+        return gui.receive()[0]
+    finally:
+        peer.close()
+        gui.close()
+
+
+def viewer_client(port: int, cams, got: dict):
+    """Connect to the entry point's viewer, ask for one frame per camera
+    (training held for the first, handed back with the last) and keep the
+    bytes received."""
+    deadline = time.monotonic() + 120
+    while True:
+        try:
+            sock = socket.create_connection(("127.0.0.1", port), timeout=120)
+            break
+        except ConnectionRefusedError:
+            if time.monotonic() > deadline:
+                raise
+            time.sleep(0.01)
+    with sock:
+        for i, cam in enumerate(cams):
+            sock.sendall(viewer_message(cam, train=i == len(cams) - 1))
+            size = cam.width * cam.height * 3
+            buf = b""
+            while len(buf) < size + 4:
+                chunk = sock.recv(size + 4 - len(buf))
+                if not chunk:
+                    raise ConnectionError("the entry point closed")
+                buf += chunk
+            n = int.from_bytes(buf[size:], "little")
+            path = b""
+            while len(path) < n:
+                path += sock.recv(n - len(path))
+            got.setdefault("frames", []).append(buf[:size])
+            got.setdefault("paths", []).append(path.decode("ascii"))
+
+
+def phase_viewer(tmp, src, out):
+    """The train entry point serving the SIBR viewer on a free loopback
+    port, resumed from the scene phase's checkpoint for VIEWER_ITERS
+    iterations; a client thread asks for two 800x800 frames (training held
+    for the first, handed back with the second) and closes. The entry's
+    first accept waits for the client, so both frames show the
+    checkpoint's state: each must be byte-equal to ``render_to_bytes`` of a
+    direct render of the camera ``receive`` makes of its request. Returns
+    K1's launches."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    ckpt = os.path.join(out, f"chkpnt{SCENE_CHECKPOINT}.ckpt")
+    cams = [demo.demo_camera(W, H, a) for a in (0.3, 2.1)]
+    got = {}
+    client = threading.Thread(target=viewer_client,
+                              args=(port, cams, got), daemon=True)
+    accept = network_gui.NetworkGUI.try_connect
+
+    def first_accept_waits(gui):
+        gui.listener.settimeout(120)
+        try:
+            accept(gui)
+        finally:
+            gui.listener.settimeout(0)
+            network_gui.NetworkGUI.try_connect = accept
+
+    network_gui.NetworkGUI.try_connect = first_accept_waits
+    client.start()
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    try:
+        summary = train_entry.main(
+            ["-s", src, "-m", os.path.join(tmp, "out_viewer"),
+             "--start_checkpoint", ckpt, "--iterations",
+             str(SCENE_CHECKPOINT + VIEWER_ITERS), "--port", str(port),
+             "--quiet"] + [a for a in SCENE_TRAIN_ARGS
+                           if a != "--disable_viewer"])
+    finally:
+        network_gui.NetworkGUI.try_connect = accept
+    torch.cuda.synchronize()
+    client.join(timeout=120)
+    check(not client.is_alive(), "the viewer client did not finish")
+    launches = blend_seq.launches
+    check(summary["viewer"] == [SCENE_CHECKPOINT + 1] * len(cams),
+          f"viewer frames served at {summary['viewer']}")
+    check(got.get("paths") == [src] * len(cams),
+          f"viewer source paths {got.get('paths')}")
+    check(launches == VIEWER_ITERS + len(cams),
+          f"{VIEWER_ITERS} iterations and {len(cams)} frames launched K1 "
+          f"{launches} times")
+
+    payload = torch.load(ckpt, map_location="cuda", weights_only=True)
+    ckpt_params = gm.normalize_params(gm.GaussianParams(**payload["params"]))
+    alive = payload["gstate"]["alive"]
+    settings = train_entry.pipeline_settings(
+        train_entry.build_parser().parse_args(["-s", src]))
+    for cam, frame in zip(cams, got["frames"]):
+        cam = parsed_camera(viewer_message(cam, train=True))
+        with torch.no_grad():
+            want = render(cam, ckpt_params, alive,
+                          payload["active_sh_degree"],
+                          torch.zeros(3, device="cuda"), settings)["render"]
+        check(bytes(network_gui.render_to_bytes(want)) == frame,
+              "a viewer frame differs from the direct render of its camera")
+    check(math.isfinite(summary["last_loss"]), "viewer run: loss")
+    print(f"viewer: the entry point served {len(cams)} {W}x{H} frames at "
+          f"iteration {SCENE_CHECKPOINT + 1}, each byte-equal to a direct "
+          f"render; then {VIEWER_ITERS} iterations in "
+          f"{summary['wall_s']:.2f} s; K1 {launches} launches")
+    return launches
+
+
+def neural_runs(params, state, cams, gts, steps):
+    """A fresh ``NeuralTrainer(sw=2)`` from the seeded decoders, ``steps``
+    steps over ``cams`` in turn: (losses, decoder and feature tensors,
+    synchronised per-step ms)."""
+    model = gm.GaussianModel(NEURAL_SH)
+    model.params, model.state = params, state
+    trainer = neural_loop.NeuralTrainer(model, sw=2, capacity=TILE_CAPACITY)
+    loss, ms = [], []
+    for s in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss.append(trainer.step(cams[s % len(cams)], gts[s % len(cams)])
+                    ["loss"])
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    leaves = dict(neural_loop.decoder_leaves(trainer.ts.net_params),
+                  features=trainer.ts.params.features)
+    return (torch.stack(loss),
+            {k: v.detach().clone() for k, v in leaves.items()}, ms)
+
+
+def same_run(a, b) -> bool:
+    return torch.equal(a[0], b[0]) and all(
+        torch.equal(a[1][k], b[1][k]) for k in a[1])
+
+
+def unpinned_reflect_pad(x, pad):
+    """The denoiser's padding before the fix: ``F.pad``'s reflect, whose
+    CUDA backward adds with atomics."""
+    return torch.nn.functional.pad(x.permute(2, 0, 1), (pad,) * 4,
+                                   mode="reflect").permute(1, 2, 0)
+
+
+def phase_neural_repeat(params, state):
+    """Neural runs repeat to the bit: two ``NeuralTrainer(sw=2)`` runs of
+    NEURAL_REPEAT_SHORT steps from the same seed, then two of
+    NEURAL_REPEAT_LONG steps over eight orbit cameras with the caching
+    allocator's state changed between them, must give bit-equal losses,
+    decoders and features. Between the long pinned runs run two with the
+    step unpinned (cuDNN's default algorithm choice and ``F.pad``'s
+    reflect, patched in here): their step time is the fix's cost, and
+    whether they repeat is printed. Returns K3's launches in the pinned
+    runs."""
+    cams = [demo.demo_camera(W, H, 2 * math.pi * i / 8) for i in range(8)]
+    with torch.no_grad():
+        gts = [render(c, params, state.alive, NEURAL_SH,
+                      torch.zeros(3, device="cuda"), SETTINGS)["render"]
+               for c in cams]
+    torch.cuda.synchronize()
+    zbuffer_pallas.launches = 0
+    short = [neural_runs(params, state, cams[:1], gts[:1],
+                         NEURAL_REPEAT_SHORT) for _ in range(2)]
+    check(same_run(*short), f"two {NEURAL_REPEAT_SHORT}-step neural runs "
+          f"differ")
+    pinned = [neural_runs(params, state, cams, gts, NEURAL_REPEAT_LONG)]
+    launches = zbuffer_pallas.launches
+    check(launches == 2 * NEURAL_REPEAT_SHORT + NEURAL_REPEAT_LONG,
+          f"the repeat runs launched K3 {launches} times")
+    big = torch.empty(20 << 30, dtype=torch.uint8, device="cuda")
+    del big
+    saved = neural_loop.deterministic_cudnn, nets._reflect_pad
+    neural_loop.deterministic_cudnn = contextlib.nullcontext
+    nets._reflect_pad = unpinned_reflect_pad
+    try:
+        unpinned = [neural_runs(params, state, cams, gts, NEURAL_REPEAT_LONG)
+                    for _ in range(2)]
+    finally:
+        neural_loop.deterministic_cudnn, nets._reflect_pad = saved
+    zbuffer_pallas.launches = 0
+    pinned.append(neural_runs(params, state, cams, gts, NEURAL_REPEAT_LONG))
+    launches += zbuffer_pallas.launches
+    check(same_run(*pinned), f"two {NEURAL_REPEAT_LONG}-step neural runs "
+          f"differ: " + ", ".join(
+              k for k in pinned[0][1]
+              if not torch.equal(pinned[0][1][k], pinned[1][1][k])))
+    ms_pinned = statistics.median(pinned[0][2][2:] + pinned[1][2][2:])
+    ms_unpinned = statistics.median(unpinned[0][2][2:]
+                                    + unpinned[1][2][2:])
+    differ = [k for k in unpinned[0][1]
+              if not torch.equal(unpinned[0][1][k], unpinned[1][1][k])]
+    print(f"neural repeat: NeuralTrainer(sw=2) at {W}x{H}/{N // 1000}k, "
+          f"2 x {NEURAL_REPEAT_SHORT} steps and 2 x {NEURAL_REPEAT_LONG} "
+          f"steps over 8 views bit-equal (losses, decoders, features); "
+          f"median step {ms_pinned:.3f} ms pinned, {ms_unpinned:.3f} ms "
+          f"unpinned (host clock, synchronised, runs in the order pinned, "
+          f"unpinned, unpinned, pinned); the unpinned pair "
+          + (f"differs in {len(differ)} tensors ({', '.join(differ[:4])})"
+             if differ or not torch.equal(unpinned[0][0], unpinned[1][0])
+             else "repeated this time")
+          + f"; K3 {launches} launches")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: the port's kernels run "
@@ -2368,8 +2932,26 @@ def main():
     phase_breakdown(loaded, lstate)
     phase_train(loaded, lstate, rows)
     phase_trainer()
+    rows["K1"]["multistep_launches"], rows["K2"]["multistep_launches"] = \
+        phase_multistep_trainer(params, state)
+    with tempfile.TemporaryDirectory() as store:
+        distributed.initialize(init_method=f"file://{store}/store",
+                               world_size=1, rank=0,
+                               device=torch.device("cuda", 0))
+        try:
+            mesh = distributed.make_global_mesh(n_tile=1)
+            rows["K1"]["dp_launches"], rows["K2"]["dp_launches"] = phase_dp(
+                params, state, mesh)
+            rows["K1"]["sp_launches"] = phase_sp(params, state, mesh)
+        finally:
+            dist.destroy_process_group()
     with tempfile.TemporaryDirectory() as tmp:
-        offline = phase_offline(tmp, *phase_scene(tmp, rows))
+        src, out, run_psnr, ply_sha = phase_scene(tmp, rows)
+        (rows["K1"]["multistep_entry_launches"],
+         rows["K2"]["multistep_entry_launches"]) = phase_multistep_entry(
+            tmp, src, ply_sha)
+        rows["K1"]["viewer_launches"] = phase_viewer(tmp, src, out)
+        offline = phase_offline(tmp, src, out, run_psnr)
 
     pallas = phase_pallas_serve(params, state)
     pallas_32, _ = sized_settings(PALLAS_PROBE_32, params, state.alive,
@@ -2386,7 +2968,9 @@ def main():
     phase_small_neural_reference()
     phase_neural_serve(nparams, nstate)
     rows["K3"]["launches"] = phase_neural_train(nparams, nstate)
+    rows["K3"]["repeat_launches"] = phase_neural_repeat(nparams, nstate)
     del nparams, nstate
+    torch.cuda.empty_cache()
 
     rows["K6"] = phase_k6()
     rows["K7"] = phase_k7()

@@ -179,6 +179,18 @@ class PureCNN(nn.Module):
         return _hwc(_conv(self.Conv_1, x, f32))
 
 
+def _reflect_pad(x: torch.Tensor, pad: int) -> torch.Tensor:
+    """(H, W, C) -> (H + 2 pad, W + 2 pad, C), reflected without repeating
+    the edge (``F.pad``'s "reflect"), built from flipped slices: its
+    backward sums each pixel's cotangents in autograd's fixed order, where
+    ``F.pad``'s backward adds them with atomics on CUDA, in an order that
+    changes from run to run."""
+    h, w = x.shape[:2]
+    x = torch.cat([x[1:pad + 1].flip(0), x, x[h - 1 - pad:h - 1].flip(0)])
+    return torch.cat([x[:, 1:pad + 1].flip(1), x,
+                      x[:, w - 1 - pad:w - 1].flip(1)], dim=1)
+
+
 def denoise(unet_out: torch.Tensor, cnn_out: torch.Tensor,
             kernel_size: int = 9) -> torch.Tensor:
     """Dynamic per-pixel filtering (the reference's Denoiser).
@@ -193,9 +205,7 @@ def denoise(unet_out: torch.Tensor, cnn_out: torch.Tensor,
         raise ValueError(f"denoise takes an (H, W, 3) image, got "
                          f"{tuple(unet_out.shape)}")
     k = kernel_size
-    pad = k // 2
-    img = F.pad(unet_out.permute(2, 0, 1), (pad, pad, pad, pad),
-                mode="reflect").permute(1, 2, 0)
+    img = _reflect_pad(unet_out, k // 2)
     kernels = cnn_out.reshape(h, w, k * k)
     out = torch.zeros_like(unet_out)
     for i in range(k * k):

@@ -54,6 +54,16 @@ class CameraParams:
         self.limit_y = (float(self.limit_y) if self.limit_y is not None
                         else 1.3 * self.tan_fovy)
 
+    def camera(self, i: int) -> CameraParams:
+        """Camera ``i`` of a stacked batch (``view`` (B, 4, 4),
+        ``full_proj`` (B, 4, 4), ``campos`` (B, 3), as
+        ``parallel.train_step.stack_cameras`` makes them): views of the
+        batch's tensors, no copy."""
+        return CameraParams(self.view[i], self.full_proj[i], self.campos[i],
+                            self.tan_fovx, self.tan_fovy, self.width,
+                            self.height, self.limit_x, self.limit_y,
+                            device=self.view.device)
+
 
 def _cov2d_components(means3d, scales, rotations, view, focal_x, focal_y,
                       limit_x, limit_y, scale_modifier):

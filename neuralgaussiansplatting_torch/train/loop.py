@@ -2,11 +2,13 @@
 
 Port of ``train/loop.py``. ``train_step`` is one render -> L1+SSIM ->
 backward -> per-group Adam -> densification-statistics step on the
-tensors' device; ``densify_step`` and ``reset_opacity_step`` are the
-density-control rounds; ``Trainer`` runs the reference's schedule around
-them (SH warm-up, densify window, opacity reset, capacity growth, instance
-capacity re-bucketing and drop warnings). None of them waits on the device,
-except the ``Trainer``'s capacity bookkeeping on its own cadence.
+tensors' device; ``train_steps`` is B of them over a stacked camera batch
+(the multi-step dispatch); ``densify_step`` and ``reset_opacity_step`` are
+the density-control rounds; ``Trainer`` runs the reference's schedule
+around them (SH warm-up, densify window, opacity reset, capacity growth,
+instance capacity re-bucketing and drop warnings), per iteration or per
+block of iterations. None of them waits on the device, except the
+``Trainer``'s capacity bookkeeping on its own cadence.
 
 A step repeats bit for bit from the same state: nothing on its gradient
 path sums in a run-dependent order (SSIM's convolutions set their own
@@ -16,9 +18,6 @@ cuDNN flags, see ``utils.losses``).
 package's pickle checkpoint as ``torch.save`` of plain dicts of tensors
 and ints (loaded with ``weights_only=True``); its orbax pair has no
 counterpart. ``training(scene, ...)`` is the loop over a ``Scene``.
-
-Not ported yet: the multi-step dispatch ``step_block`` / ``train_steps``
-(its counterpart is a CUDA graph of ``train_step``, a later slice).
 """
 
 from __future__ import annotations
@@ -131,6 +130,25 @@ def train_step(ts: TrainState, cam, gt: torch.Tensor, bg: torch.Tensor, *,
         "radii_max": out["radii"].max(),
     }
     return TrainState(new_params, gstate, opt_state, ts.step + 1), metrics
+
+
+def train_steps(ts: TrainState, cams, gts: torch.Tensor, bgs: torch.Tensor,
+                *, tx: optim.Adam, sh_degree: int,
+                settings: rast.RasterizeSettings, lambda_dssim: float):
+    """B sequential ``train_step``s: camera i of the stacked ``cams``
+    (``parallel.train_step.stack_cameras``), ground truth ``gts[i]`` of the
+    (B, 3, H, W) stack and background ``bgs[i]`` of the (B, 3) one. The
+    same state chain as B ``train_step`` calls, bit for bit. Nothing is
+    read back to the host inside the block: each step's inputs are views
+    of the stacks, and the metrics stay on the device, stacked along B
+    once at the end. Returns (final TrainState, {name: (B,) tensor})."""
+    steps = []
+    for i in range(gts.shape[0]):
+        ts, metrics = train_step(ts, cams.camera(i), gts[i], bgs[i], tx=tx,
+                                 sh_degree=sh_degree, settings=settings,
+                                 lambda_dssim=lambda_dssim)
+        steps.append(metrics)
+    return ts, {k: torch.stack([m[k] for m in steps]) for k in steps[0]}
 
 
 def densify_step(ts: TrainState, generator: torch.Generator,
@@ -265,6 +283,81 @@ class Trainer:
                     metrics["grew_capacity"] = self.ts.params.xyz.shape[0]
 
         if self.auto_tune_capacity and iteration % self.tune_interval == 0:
+            new_settings, tuned = tune_capacity(
+                self.settings, int(metrics["num_rendered"]),
+                int(metrics["aligned_demand"]),
+                self.min_capacity, self.max_capacity)
+            if tuned:
+                self.settings = new_settings
+                metrics["retuned_capacity"] = new_settings.capacity
+            self._check_drops(metrics)
+        return metrics
+
+    def step_block(self, cams, gts, first_iteration: int):
+        """``B = gts.shape[0]`` sequential iterations from
+        ``first_iteration`` through ``train_steps``: the same step chain as
+        B ``step`` calls. Schedule events whose iteration falls inside the
+        block are applied at its edges (SH warm-up before it, density
+        control and capacity tuning after it), so the run matches
+        per-iteration stepping when the block size divides their intervals.
+        ``cams`` is a stacked ``CameraParams``. Callers that evaluate at
+        milestones call ``grad_step_block`` -> evaluation ->
+        ``apply_schedule_block``, as with ``step``."""
+        b = int(gts.shape[0])
+        metrics = self.grad_step_block(cams, gts, first_iteration)
+        return self.apply_schedule_block(
+            first_iteration, first_iteration + b - 1, metrics)
+
+    def grad_step_block(self, cams, gts, first_iteration: int):
+        """The gradient phase of ``step_block``: SH warm-up if an iteration
+        of the block is a multiple of 1000, then ``train_steps``. With
+        ``random_background`` one (B, 3) draw from the trainer's generator
+        serves the block (not bit-equal to B per-iteration draws, as in the
+        JAX package). Returns the last step's metrics. (``debug`` is
+        checked per iteration only, by ``grad_step``.)"""
+        b = int(gts.shape[0])
+        if any(i % 1000 == 0
+               for i in range(first_iteration, first_iteration + b)):
+            self.gaussians.oneup_sh_degree()
+        if self.opt.random_background:
+            bgs = torch.rand((b, 3), generator=self.generator,
+                             device=self.bg.device)
+        else:
+            bgs = self.bg.expand(b, 3)
+        self.ts, stacked = train_steps(
+            self.ts, cams, gts, bgs, tx=self.tx,
+            sh_degree=self.gaussians.active_sh_degree,
+            settings=self.settings, lambda_dssim=self.opt.lambda_dssim)
+        return {k: v[-1] for k, v in stacked.items()}
+
+    def apply_schedule_block(self, it0: int, it1: int, metrics):
+        """Density control and capacity management after the block of
+        iterations ``it0..it1`` (inclusive), on ``apply_schedule``'s tests
+        taken over the block: densify if any iteration qualifies (the size
+        prune once ``it1`` passes the opacity-reset interval), reset the
+        opacity if any iteration is a reset iteration (or, on a white
+        background, the block holds ``densify_from_iter``), tune if any
+        iteration is a tune iteration."""
+        block = range(it0, it1 + 1)
+        opt = self.opt
+        if it0 < opt.densify_until_iter:
+            if any(i > opt.densify_from_iter
+                   and i % opt.densification_interval == 0 for i in block):
+                use_size = it1 > opt.opacity_reset_interval
+                self.ts, report = densify_step(
+                    self.ts, self.generator, self.cameras_extent, cfg=opt,
+                    use_size_prune=use_size)
+                metrics["densify"] = report
+            if any(i % opt.opacity_reset_interval == 0 for i in block) or (
+                    self.white_background
+                    and it0 <= opt.densify_from_iter <= it1):
+                self.ts = reset_opacity_step(self.ts)
+            if self.auto_grow and "densify" in metrics:
+                if self.maybe_grow():
+                    metrics["grew_capacity"] = self.ts.params.xyz.shape[0]
+
+        if self.auto_tune_capacity and any(
+                i % self.tune_interval == 0 for i in block):
             new_settings, tuned = tune_capacity(
                 self.settings, int(metrics["num_rendered"]),
                 int(metrics["aligned_demand"]),

@@ -14,10 +14,17 @@ sum, the decoders' from their convolutions' own backward.
 The decoders are ``nn.Module``s and the step updates their parameters in
 place (a copy of each updated tensor into it); ``features`` is replaced,
 as the JAX step replaces every leaf.
+
+A step repeats bit for bit from the same state on the card: its forward
+and backward run with cuDNN restricted to deterministic algorithms (the
+decoders' weight gradients otherwise may take ones that add with atomics),
+and the denoiser's reflect padding has a deterministic backward
+(``nets._reflect_pad``). TF32 stays as PyTorch sets it (deterministic).
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple
 
 import torch
@@ -53,6 +60,20 @@ def make_neural_optimizer(opt: optim.OptimizationParams, net_params: dict):
                             for name in decoder_leaves(net_params)}))
 
 
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN restricted to deterministic algorithms inside the block (its
+    TF32 switch untouched); the flag is global, so the backward, which
+    runs in autograd's device thread, sees it too."""
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic
+    cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        cudnn.deterministic = saved
+
+
 def neural_train_step(ts: NeuralTrainState, cam, gt: torch.Tensor, *,
                       sw: int, capacity: int, txs, lambda_dssim: float,
                       dtype=torch.float32):
@@ -63,12 +84,13 @@ def neural_train_step(ts: NeuralTrainState, cam, gt: torch.Tensor, *,
     gaussian_tx, net_tx = txs
     features = ts.params.features.detach().requires_grad_()
     leaves = decoder_leaves(ts.net_params)
-    out = RENDER_FNS[sw](cam, ts.params._replace(features=features),
-                         ts.net_params, capacity, dtype=dtype,
-                         alive=ts.alive)
-    loss = losses.photometric_loss(out["render"], gt, lambda_dssim)
     inputs = [features, *leaves.values()]
-    grads = torch.autograd.grad(loss, inputs, allow_unused=True)
+    with deterministic_cudnn():
+        out = RENDER_FNS[sw](cam, ts.params._replace(features=features),
+                             ts.net_params, capacity, dtype=dtype,
+                             alive=ts.alive)
+        loss = losses.photometric_loss(out["render"], gt, lambda_dssim)
+        grads = torch.autograd.grad(loss, inputs, allow_unused=True)
     grads = [torch.zeros_like(x) if g is None else g
              for x, g in zip(inputs, grads)]
 

@@ -985,3 +985,159 @@ def test_render_and_metrics_entry_points_on_gpu(tmp_path, monkeypatch):
     finally:
         lpips._load_params.cache_clear()
     assert all(math.isfinite(scores[k]) for k in ("SSIM", "PSNR", "LPIPS"))
+
+
+def _orbit(params, state, w, h, views=4, sh_degree=3):
+    cams = [demo.demo_camera(w, h, 2 * math.pi * i / views)
+            for i in range(views)]
+    with torch.no_grad():
+        gts = [render(c, params, state.alive, sh_degree,
+                      torch.zeros(3, device="cuda"), SETTINGS)["render"]
+               for c in cams]
+    return cams, gts
+
+
+@pytest.mark.cuda
+def test_step_block_matches_steps_on_gpu():
+    """``Trainer.step_block`` (3 blocks of 4) against 12 ``Trainer.step``s
+    at 128x128 with a white background, its opacity reset at 4 and
+    densification and tuning at 8 and 12 (block edges): the final state
+    bit-equal."""
+    _need_gpu()
+    from neuralgaussiansplatting_torch.parallel.train_step import (
+        stack_cameras)
+    params, state, _ = demo.demo_scene(n=4000, w=128, h=128, sh_degree=3,
+                                       capacity=8000)
+    cams, gts = _orbit(params, state, 128, 128)
+    opt = optim.OptimizationParams(densify_from_iter=4,
+                                   densification_interval=4)
+
+    def trainer():
+        model = gm.GaussianModel(3)
+        model.params = params._replace(opacity=params.opacity - 0.5)
+        model.state = state
+        return loop.Trainer(model, opt=opt, settings=SETTINGS,
+                            white_background=True, cameras_extent=4.4,
+                            tune_interval=4)
+
+    a, b = trainer(), trainer()
+    for it in range(1, 13):
+        a.step(cams[it % 4], gts[it % 4], it)
+    for first in (1, 5, 9):
+        idx = [it % 4 for it in range(first, first + 4)]
+        m = b.step_block(stack_cameras([cams[i] for i in idx]),
+                         torch.stack([gts[i] for i in idx]), first)
+    assert "densify" in m
+    for x, y in zip(list(a.ts.params) + list(a.ts.gstate),
+                    list(b.ts.params) + list(b.ts.gstate)):
+        assert torch.equal(x, y)
+    for name, g in a.ts.opt_state.items():
+        assert torch.equal(g.mu, b.ts.opt_state[name].mu)
+        assert torch.equal(g.nu, b.ts.opt_state[name].nu)
+
+
+@pytest.mark.cuda
+def test_strip_render_matches_monolithic_on_gpu():
+    """256x320 in 5 strips of 64 rows (two 32-row tile rows each) through
+    ``make_sharded_renderer`` on a 1 x 1 mesh: K1 once per strip, each
+    strip bit-equal to the render of its strip camera, the strips'
+    instances adding up to the frame's, and the image within the band gate
+    of the monolithic render (max 0.05, mean 1e-3: the strip cameras round
+    the Gaussians' pixel rows apart from the frame's)."""
+    _need_gpu()
+    from neuralgaussiansplatting_torch.parallel import mesh as mesh_lib
+    from neuralgaussiansplatting_torch.parallel import render_sp
+    params, state, cam = demo.demo_scene(n=20_000, w=256, h=320,
+                                         sh_degree=3)
+    bg = torch.zeros(3, device="cuda")
+    renderer = render_sp.make_sharded_renderer(
+        mesh_lib.make_mesh(), sh_degree=3, settings=SETTINGS, n_strips=5)
+    with torch.no_grad():
+        whole = render(cam, params, state.alive, 3, bg, SETTINGS)
+        before = blend_seq.launches
+        frame = renderer(cam, params, state.alive, bg)
+        assert blend_seq.launches == before + 5
+        strips = render_sp.strip_cameras(cam, 5)
+        parts = [render(strips.camera(i), params, state.alive, 3, bg,
+                        SETTINGS) for i in range(5)]
+    assert torch.equal(frame, torch.cat([p["render"] for p in parts], 1))
+    assert sum(int(p["num_rendered"]) for p in parts) == int(
+        whole["num_rendered"])
+    diff = (frame - whole["render"]).abs()
+    assert diff.max() <= 0.05 and diff.mean() <= 1e-3
+
+
+@pytest.mark.cuda
+def test_dp_world1_stats_match_sequential_on_gpu():
+    """One data-parallel step over 3 cameras (one process, no group) has
+    the densification statistics of 3 single-camera iterations: denom and
+    max radii exact, the accumulator at JAX's rtol 1e-4 / atol 1e-7."""
+    _need_gpu()
+    from neuralgaussiansplatting_torch.parallel import mesh as mesh_lib
+    from neuralgaussiansplatting_torch.parallel.train_step import (
+        make_dp_train_step, stack_cameras)
+    from neuralgaussiansplatting_torch.train import densify as dens
+    from neuralgaussiansplatting_torch.utils import losses
+    params, state, _ = demo.demo_scene(n=4000, w=128, h=128, sh_degree=3)
+    cams, gts = _orbit(params, state, 128, 128, views=3)
+    start = params._replace(opacity=params.opacity - 0.5)
+    tx = optim.make_optimizer(optim.OptimizationParams(), 1.0)
+    bg = torch.zeros(3, device="cuda")
+    step = make_dp_train_step(mesh_lib.make_mesh(), tx, sh_degree=3,
+                              settings=SETTINGS)
+    got, _ = step(loop.TrainState(start, state, tx.init(start), 0),
+                  stack_cameras(cams), torch.stack(gts), bg)
+    want = state
+    for cam, gt in zip(cams, gts):
+        off = start.xyz.new_zeros((start.xyz.shape[0], 2),
+                                  requires_grad=True)
+        out = render(cam, start, state.alive, 3, bg, SETTINGS,
+                     means2d_offset=off)
+        goff, = torch.autograd.grad(
+            losses.photometric_loss(out["render"], gt, 0.2), [off])
+        want = dens.add_densification_stats(want, out["radii"], goff)
+    assert torch.equal(got.gstate.denom, want.denom)
+    assert torch.equal(got.gstate.max_radii2d, want.max_radii2d)
+    torch.testing.assert_close(got.gstate.xyz_gradient_accum,
+                               want.xyz_gradient_accum, rtol=1e-4,
+                               atol=1e-7)
+
+
+@pytest.mark.cuda
+def test_neural_step_repeats_on_gpu():
+    """Two ``NeuralTrainer(sw=2)`` runs of 20 steps over 4 views at 128x128
+    from the same seed: losses, decoders and features bit-equal; and the
+    denoiser's gradient at 800x800 the same over 20 backward passes (its
+    reflect padding once added with atomics)."""
+    _need_gpu()
+    from neuralgaussiansplatting_torch.train import neural_loop
+    params, state, _ = demo.demo_scene(n=4000, w=128, h=128, sh_degree=1)
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    params = params._replace(features=torch.randn(
+        params.features.shape, generator=gen, device="cuda"))
+    cams, gts = _orbit(params, state, 128, 128, sh_degree=1)
+
+    def run():
+        model = gm.GaussianModel(1)
+        model.params, model.state = params, state
+        trainer = neural_loop.NeuralTrainer(model, sw=2, capacity=1 << 16)
+        loss = torch.stack([trainer.step(cams[s % 4], gts[s % 4])["loss"]
+                            for s in range(20)])
+        leaves = dict(neural_loop.decoder_leaves(trainer.ts.net_params),
+                      features=trainer.ts.params.features)
+        return loss, {k: v.detach().clone() for k, v in leaves.items()}
+
+    (la, a), (lb, b) = run(), run()
+    assert torch.equal(la, lb)
+    for k in a:
+        assert torch.equal(a[k], b[k]), k
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    unet = torch.rand((800, 800, 3), generator=gen, device="cuda",
+                      requires_grad=True)
+    kernels = torch.rand((800, 800, 81), generator=gen, device="cuda")
+    cot = torch.randn((800, 800, 3), generator=gen, device="cuda")
+    first = torch.autograd.grad(nets.denoise(unet, kernels), unet, cot)[0]
+    for _ in range(20):
+        again = torch.autograd.grad(nets.denoise(unet, kernels), unet, cot)[0]
+        assert torch.equal(first, again)

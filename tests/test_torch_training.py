@@ -81,6 +81,9 @@ def _assert_params_close(t_params, j_params, lrs, steps):
     steps x (1e-5 relative + 1e-7); leaves without a learning rate equal."""
     for field, a, b in zip(jgm.GaussianParams._fields, j_params, t_params):
         a, b = np.asarray(a), b.numpy()
+        assert a.shape == b.shape, field
+        if a.size == 0:     # features_rest at SH degree 0
+            continue
         if field not in lrs:
             np.testing.assert_array_equal(b, a, err_msg=field)
             continue
