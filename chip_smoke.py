@@ -64,6 +64,20 @@ decode tool's two workloads (100k runs over 655,360 slots; 5M over
 port's ``tools.exp_decode_proto`` and ``tools.exp_mosaic_probe`` mains and
 every ``tools.chain_bench`` configuration once.
 
+Quality (the JAX package's full-schedule harnesses, ported to
+``neuralgaussiansplatting_torch/tools/``, at full width with the depth
+cut): ``train_quality_proof``'s 800x800 scene (100 train and 25 test
+views, 40k GT Gaussians, a 10k init cloud) trained 3000 iterations (test
+PSNR at 1000 and 3000 no more than 1 dB below the JAX package's published
+rows, the capacity grown, no drops at the tune points, K1 once per
+iteration and evaluation render, K2 once per iteration); the oracle's
+``hold`` 200 iterations on it (44 dB or more); ``train_neural_quality``
+300 iterations of ``--sw 2`` from its PLY (test PSNR finite and rising,
+K3 at least once per iteration); ``train_garden``'s 1920x1080 scene (40
+views, 300k GT, 1M init points) trained 500 iterations (test PSNR at 500
+no more than 1 dB below the published row, finite losses); and
+``bench_trained_scene`` on the proof's model (no drops in its probe).
+
 Each path checks that it went through its kernels. It prints one JSON line
 of per-kernel numbers, the card's name and power limit, and as its last
 line ``{"ok": true, "device": {...}}``. Any failed check exits non-zero
@@ -77,6 +91,7 @@ import contextlib
 import copy
 import dataclasses
 import hashlib
+import io
 import json
 import math
 import os
@@ -109,6 +124,7 @@ from neuralgaussiansplatting_torch.ops import blend_pallas
 from neuralgaussiansplatting_torch.ops import blend_seq
 from neuralgaussiansplatting_torch.ops import decode_runs
 from neuralgaussiansplatting_torch.ops import idxmap as idxmap_ops
+from neuralgaussiansplatting_torch.ops import knn
 from neuralgaussiansplatting_torch.ops import preprocess as pp
 from neuralgaussiansplatting_torch.ops import blend as blend_plain
 from neuralgaussiansplatting_torch.ops import rasterize as rast
@@ -123,10 +139,15 @@ from neuralgaussiansplatting_torch.parallel.train_step import (
 from neuralgaussiansplatting_torch.scene import colmap as colmap_io
 from neuralgaussiansplatting_torch.scene import image_io
 from neuralgaussiansplatting_torch.scene import ply as ply_io
+from neuralgaussiansplatting_torch.tools import bench_trained_scene
 from neuralgaussiansplatting_torch.tools import chain_bench
+from neuralgaussiansplatting_torch.tools import exp_quality_oracle
 from neuralgaussiansplatting_torch.tools import exp_decode_proto
 from neuralgaussiansplatting_torch.tools import exp_mosaic_probe
 from neuralgaussiansplatting_torch.tools import make_demo_scene
+from neuralgaussiansplatting_torch.tools import train_garden
+from neuralgaussiansplatting_torch.tools import train_neural_quality
+from neuralgaussiansplatting_torch.tools import train_quality_proof
 from neuralgaussiansplatting_torch.train import __main__ as train_entry
 from neuralgaussiansplatting_torch.train import densify as dens
 from neuralgaussiansplatting_torch.train import loop
@@ -325,6 +346,20 @@ VIEWER_ITERS = 30
 # at which two runs with cuDNN's default algorithms and F.pad's reflect
 # padding were seen to part).
 NEURAL_REPEAT_SHORT, NEURAL_REPEAT_LONG = 5, 100
+# The quality phase: the JAX package's full-schedule harnesses, ported to
+# neuralgaussiansplatting_torch/tools/, at their full width (the proof's
+# 800x800 scene of 100 train and 25 test views, 40k GT Gaussians and a 10k
+# init cloud; the garden's 1920x1080 scene of 40 train views, 300k GT and a
+# 1M init cloud) and at a cut depth. Its gates: test PSNR no more than
+# QUALITY_MARGIN dB below the JAX package's published rows
+# (docs/DESIGN.md:158-161, 177-179), the oracle's hold at the GT-recovery
+# level the JAX package reports (docs/DESIGN.md:206-207).
+QUALITY_ITERS, ORACLE_ITERS = 3000, 200
+NEURAL_QUALITY_ITERS, GARDEN_ITERS = 300, 500
+QUALITY_MARGIN = 1.0
+QUALITY_PUBLISHED = {1000: 31.8, 3000: 35.8}
+GARDEN_PUBLISHED = {500: 21.27}
+ORACLE_PSNR = 44.0
 
 
 def fail(msg: str):
@@ -2913,6 +2948,206 @@ def phase_neural_repeat(params, state):
     return launches
 
 
+@contextlib.contextmanager
+def harness_output(label: str):
+    """Hold a harness's own printing (its entry point's progress lines,
+    its JSON) back; print its tail if the harness raises."""
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            yield
+    except BaseException:
+        print(f"{label} output (tail):\n{buf.getvalue()[-4000:]}")
+        raise
+
+
+def quality_counts() -> dict:
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    counts["K3"] = zbuffer_pallas.launches
+    return counts
+
+
+def gate_published(label: str, rows: list, published: dict):
+    """Each published row's test PSNR, less QUALITY_MARGIN, held against
+    the port's row at that iteration."""
+    got = {r["iteration"]: r["psnr"] for r in rows}
+    for it, want in published.items():
+        check(it in got, f"{label}: no evaluation at {it}")
+        check(got[it] >= want - QUALITY_MARGIN,
+              f"{label}: test PSNR {got[it]:.3f} dB at {it}, more than "
+              f"{QUALITY_MARGIN} dB below the JAX package's {want}")
+
+
+def phase_quality(tmp) -> dict:
+    """The full-schedule harnesses at full width, cut in depth: (a) the
+    quality proof's scene trained QUALITY_ITERS iterations through
+    ``train_quality_proof``'s ``main`` (SH warm-up to degree 3, ~25
+    densify steps, capacity growth, the opacity reset at 3000); (b) the
+    oracle's ``hold`` on it; (c) ``train_neural_quality`` from (a)'s PLY;
+    (d) the garden scene through ``train_garden``; (e)
+    ``bench_trained_scene`` on (a)'s model. Returns the launches of each
+    part per kernel."""
+    launches = {}
+    scene = os.path.join(tmp, "q_scene")
+    proof_out = os.path.join(tmp, "q_proof")
+
+    argv = ["--scene", scene, "--out", proof_out, "--iters",
+            str(QUALITY_ITERS)]
+    t0 = time.perf_counter()
+    gen_s = train_quality_proof.generate(
+        train_quality_proof.build_parser().parse_args(argv))
+    reset_launch_counts()
+    with harness_output("quality proof"):
+        proof = train_quality_proof.main(argv)
+    counts = quality_counts()
+    part_s = time.perf_counter() - t0
+    rows, data = proof["test_psnr"], proof["dataset"]
+    evals = len(rows) * (data["test_views"] + 5)
+    check(counts["K1"] == QUALITY_ITERS + evals
+          and counts["K2"] == QUALITY_ITERS,
+          f"quality proof: {QUALITY_ITERS} iterations and {evals} "
+          f"evaluation renders launched {counts}")
+    check(proof["launches"] == {"K1": counts["K1"], "K2": counts["K2"]},
+          f"quality proof: the harness counted {proof['launches']}")
+    gate_published("quality proof", rows, QUALITY_PUBLISHED)
+    check(proof["capacity"] >= 2 * data["init_points"],
+          f"quality proof: capacity {proof['capacity']}: maybe_grow never "
+          f"fired")
+    check(proof["tune_drops"] and all(d == 0 for _, d in
+                                      proof["tune_drops"]),
+          f"quality proof: drops at the tune points {proof['tune_drops']}")
+    launches["proof"] = counts
+    print(f"quality proof: {QUALITY_ITERS} iterations ({data['resolution']}x"
+          f"{data['resolution']}, {data['train_views']} train / {data['test_views']} test "
+          f"views, {data['gt_gaussians']} GT, {data['init_points']} init) "
+          f"in {part_s:.2f} s (scene "
+          f"written in {gen_s:.2f} s, set-up {proof['setup_s']:.2f} s, "
+          f"training {proof['wall_clock_s'] - proof['setup_s']:.2f} s), "
+          f"median iteration {proof['median_iter_ms']:.3f} ms (host "
+          f"clock); test PSNR "
+          + ", ".join(f"{r['iteration']}: {r['psnr']:.3f} dB (L1 "
+                      f"{r['l1']:.5f})" for r in rows)
+          + f" against the JAX package's {QUALITY_PUBLISHED}; alive "
+          f"{data['init_points']} -> {proof['alive']}, capacity "
+          f"{proof['capacity']}; drops at the tune points "
+          f"{proof['tune_drops']}; peak "
+          f"{proof['peak_memory_bytes'] / 2**30:.3f} GiB; K1 "
+          f"{counts['K1']}, K2 {counts['K2']} launches")
+
+    t0 = time.perf_counter()
+    reset_launch_counts()
+    with harness_output("oracle"):
+        hold = exp_quality_oracle.main(["hold", "--scene", scene, "--iters",
+                                        str(ORACLE_ITERS)])["hold"]
+    counts = quality_counts()
+    part_s = time.perf_counter() - t0
+    check([r["iteration"] for r in hold] == [0, ORACLE_ITERS],
+          f"oracle rows {hold}")
+    check(all(r["psnr"] >= ORACLE_PSNR for r in hold),
+          f"oracle hold: test PSNR {[r['psnr'] for r in hold]} below "
+          f"{ORACLE_PSNR} dB")
+    check(counts["K1"] == ORACLE_ITERS + 8 * len(hold) and counts["K2"]
+          == ORACLE_ITERS, f"oracle hold launched {counts}")
+    launches["oracle"] = counts
+    print(f"quality oracle: hold {ORACLE_ITERS} iterations in "
+          f"{part_s:.2f} s; test PSNR "
+          + ", ".join(f"{r['iteration']}: {r['psnr']:.3f} dB" for r in hold)
+          + f"; alive {hold[-1]['alive']}; K1 {counts['K1']}, K2 "
+          f"{counts['K2']} launches")
+
+    ply = os.path.join(proof_out, "point_cloud",
+                       f"iteration_{QUALITY_ITERS}", "point_cloud.ply")
+    t0 = time.perf_counter()
+    reset_launch_counts()
+    with harness_output("neural quality"):
+        neural = train_neural_quality.main([
+            "--scene", scene, "--out", os.path.join(tmp, "q_neural"),
+            "--iters", str(NEURAL_QUALITY_ITERS), "--start_ply", ply])
+    counts = quality_counts()
+    part_s = time.perf_counter() - t0
+    nrows = neural["milestones"]
+    psnrs = [r["psnr"] for r in nrows]
+    check(len(psnrs) >= 2 and all(math.isfinite(p) for p in psnrs)
+          and psnrs[-1] > psnrs[0],
+          f"neural quality: test PSNR {psnrs} not finite and rising")
+    check(counts["K3"] >= NEURAL_QUALITY_ITERS,
+          f"neural quality: {NEURAL_QUALITY_ITERS} iterations launched "
+          f"{counts}")
+    launches["neural"] = counts
+    print(f"quality neural: --sw 2, {NEURAL_QUALITY_ITERS} iterations from "
+          f"the proof's PLY in {part_s:.2f} s (set-up "
+          f"{neural['setup_s']:.2f} s), median iteration "
+          f"{neural['median_iter_ms']:.3f} ms; test PSNR "
+          + ", ".join(f"{r['iteration']}: {r['psnr']:.3f} dB" for r in nrows)
+          + f"; peak {neural['peak_memory_bytes'] / 2**30:.3f} GiB; K3 "
+          f"{counts['K3']} launches")
+
+    garden_scene = os.path.join(tmp, "garden_scene")
+    argv = ["--scene", garden_scene, "--out", os.path.join(tmp, "garden_out"),
+            "--iters", str(GARDEN_ITERS)]
+    t0 = time.perf_counter()
+    gen_s = train_garden.generate(train_garden.build_parser().parse_args(
+        argv))
+    pts = ply_io.fetch_point_cloud(
+        os.path.join(garden_scene, "points3d.ply"))[0]
+    t1 = time.perf_counter()
+    knn.mean_sq_dist_3nn(pts)
+    knn_s = time.perf_counter() - t1
+    reset_launch_counts()
+    with harness_output("garden"):
+        garden = train_garden.main(argv)
+    counts = quality_counts()
+    part_s = time.perf_counter() - t0
+    grows = garden["milestones"]
+    gate_published("garden", grows, GARDEN_PUBLISHED)
+    check(math.isfinite(garden["last_loss"])
+          and all(math.isfinite(r["l1"]) for r in grows),
+          f"garden: losses {garden['last_loss']}, {grows}")
+    check(counts["K1"] >= GARDEN_ITERS and counts["K2"] == GARDEN_ITERS,
+          f"garden: {GARDEN_ITERS} iterations launched {counts}")
+    launches["garden"] = counts
+    print(f"quality garden: {GARDEN_ITERS} iterations "
+          f"({garden['scene']['resolution']}, {garden['scene']['views']} "
+          f"train views, {garden['scene']['gt_gaussians']} GT, {len(pts)} "
+          f"init points) in {part_s:.2f} s "
+          f"(scene written in {gen_s:.2f} s; set-up {garden['setup_s']:.2f} "
+          f"s; the init cloud's kNN "
+          f"{'(native) ' if native.available() else '(Python) '}{knn_s:.2f} "
+          f"s timed alone), median iteration "
+          f"{garden['median_iter_ms']:.3f} ms, {garden['iters_per_s']:.3f} "
+          f"iterations/s; test PSNR "
+          + ", ".join(f"{r['iteration']}: {r['psnr']:.3f} dB (L1 "
+                      f"{r['l1']:.5f})" for r in grows)
+          + f" against the JAX package's {GARDEN_PUBLISHED}; "
+          f"{garden['final_alive_line']}; drops at the tune points "
+          f"{garden['tune_drops']}; peak "
+          f"{garden['peak_memory_bytes'] / 2**30:.3f} GiB; last loss "
+          f"{garden['last_loss']:.6f}; K1 {counts['K1']}, K2 "
+          f"{counts['K2']} launches")
+
+    t0 = time.perf_counter()
+    reset_launch_counts()
+    with harness_output("trained-scene bench"):
+        bench = bench_trained_scene.main(["-m", proof_out])
+    counts = quality_counts()
+    part_s = time.perf_counter() - t0
+    check(bench["dropped"] == 0,
+          f"trained-scene bench: the probe dropped {bench['dropped']}")
+    check(counts["K1"] > 0 and counts["K2"] > 0,
+          f"trained-scene bench launched {counts}")
+    launches["bench"] = counts
+    print(f"quality bench: the proof's model ({bench['n_alive']} alive) at "
+          f"{bench['resolution']} in {part_s:.2f} s: fwd_ms "
+          f"{bench['fwd_ms']:.4f}, fwd_fps {bench['fwd_fps']:.2f}, "
+          f"fwdbwd_ms {bench['fwdbwd_ms']:.4f}, num_rendered "
+          f"{bench['num_rendered']}, capacity {bench['capacity']}, "
+          f"packed_capacity {bench['packed_capacity']}, dropped 0; K1 "
+          f"{counts['K1']}, K2 {counts['K2']} launches")
+    print(f"quality card: {card_line()}")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: the port's kernels run "
@@ -2981,6 +3216,13 @@ def main():
         entry.update(chained_ms=result["k6_ms"],
                      chained_plain_ms=result["plain_ms"],
                      chained_library_ms=result["repeat_interleave_ms"])
+
+    with tempfile.TemporaryDirectory() as tmp:
+        quality = phase_quality(tmp)
+    for name in ("K1", "K2", "K3"):
+        rows[name]["quality_launches"] = {
+            part: counts[name] for part, counts in quality.items()
+            if counts[name]}
 
     rows["K1"]["render_entry_launches"] = offline["K1"]
     rows["K4"]["render_entry_launches"] = offline["K4"]

@@ -9,6 +9,8 @@ launches its hand-written kernel (``csrc/``) or raises; only a CPU tensor
 takes the kernel's plain PyTorch version.
 """
 
+import os
+
 import torch
 
 
@@ -24,3 +26,11 @@ def resolve_device(device) -> torch.device:
             f"device {str(device)!r} requested but CUDA is not available; "
             "pass device='cpu' to run on the CPU")
     return dev
+
+
+def platform_device() -> torch.device:
+    """The entry points' device: the CUDA device, or the CPU when the
+    environment sets ``NGS_PLATFORM=cpu``; raises without a GPU otherwise
+    (there is no fallback from one to the other)."""
+    return resolve_device(
+        "cpu" if os.environ.get("NGS_PLATFORM") == "cpu" else "cuda")

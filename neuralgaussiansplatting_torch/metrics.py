@@ -21,7 +21,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from neuralgaussiansplatting_torch import resolve_device
+from neuralgaussiansplatting_torch import platform_device
 from neuralgaussiansplatting_torch.scene.image_io import read_png
 from neuralgaussiansplatting_torch.utils import losses
 from neuralgaussiansplatting_torch.utils.lpips import lpips_fn
@@ -45,8 +45,7 @@ def read_images(renders_dir, gt_dir):
 def evaluate(model_paths) -> dict:
     """Score every method under each model's ``test/``; writes the two
     JSON files per model and returns {model: {method: {metric: mean}}}."""
-    dev = resolve_device(
-        "cpu" if os.environ.get("NGS_PLATFORM") == "cpu" else "cuda")
+    dev = platform_device()
     lpips = lpips_fn("vgg", device=dev)
 
     full_dict = {}

@@ -28,7 +28,7 @@ from argparse import ArgumentParser
 import numpy as np
 import torch
 
-from neuralgaussiansplatting_torch import config, resolve_device
+from neuralgaussiansplatting_torch import config, platform_device
 from neuralgaussiansplatting_torch.gaussian_renderer import render
 from neuralgaussiansplatting_torch.models.gaussians import GaussianModel
 from neuralgaussiansplatting_torch.ops import rasterize as rast
@@ -83,8 +83,7 @@ def build_parser() -> ArgumentParser:
 def main(argv=None) -> dict:
     args = config.get_combined_args(build_parser(), argv)
     print("Rendering " + args.model_path)
-    device = resolve_device(
-        "cpu" if os.environ.get("NGS_PLATFORM") == "cpu" else "cuda")
+    device = platform_device()
     dataset = config.extract(config.ModelParams, args)
     pipe = config.extract(config.PipelineParams, args)
 

@@ -14,6 +14,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -111,11 +112,11 @@ def read_colmap_scene(path, images="images", eval_split=False, llffhold=8):
 def read_cameras_from_transforms(path, transformsfile, white_background,
                                  extension=".png", default_width=None,
                                  default_height=None):
-    infos = []
     with open(os.path.join(path, transformsfile)) as f:
         contents = json.load(f)
     fovx = contents["camera_angle_x"]
-    for idx, frame in enumerate(contents["frames"]):
+
+    def read_frame(idx, frame):
         file_path = frame["file_path"]
         if not file_path.endswith(extension):
             file_path = file_path + extension
@@ -143,11 +144,16 @@ def read_cameras_from_transforms(path, transformsfile, white_background,
             image = np.zeros((height, width, 3), np.uint8)
 
         fovy = proj.focal2fov(proj.fov2focal(fovx, width), height)
-        infos.append(CameraInfo(
+        return CameraInfo(
             uid=idx, R=R, T=T, FovX=fovx, FovY=fovy, image=image,
             image_path=cam_name, image_name=Path(cam_name).stem,
-            width=width, height=height))
-    return infos
+            width=width, height=height)
+
+    # the frames are decoded on a pool of threads (zlib and numpy release
+    # the interpreter lock), in order
+    frames = contents["frames"]
+    with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as pool:
+        return list(pool.map(read_frame, range(len(frames)), frames))
 
 
 def read_nerf_synthetic(path, white_background=False, eval_split=False,

@@ -305,17 +305,19 @@ def _coefficients(in_size: int, out_size: int):
 
 def _resample_axis(img: np.ndarray, out_size: int, axis: int) -> np.ndarray:
     """One pass of Pillow's 8-bit resampling along ``axis`` (0 rows, 1
-    columns) of a uint8 (H, W, C) image, clipped to uint8."""
+    columns) of a uint8 (H, W, C) image, clipped to uint8. The sums are
+    int32, as Pillow's are (its weights keep them in range)."""
     in_size = img.shape[axis]
     xmin, xmax, kk = _coefficients(in_size, out_size)
     shape = [1, 1, 1]
     shape[axis] = out_size
     acc = np.full(img.shape[:axis] + (out_size,) + img.shape[axis + 1:],
-                  1 << (_PRECISION_BITS - 1), np.int64)
+                  1 << (_PRECISION_BITS - 1), np.int32)
+    src = img.astype(np.int32)
     for j in range(kk.shape[1]):
-        weight = np.where(j < xmax, kk[:, j], 0).reshape(shape)
+        weight = np.where(j < xmax, kk[:, j], 0).astype(np.int32)
         idx = np.minimum(xmin + j, in_size - 1)
-        acc += np.take(img, idx, axis=axis).astype(np.int64) * weight
+        acc += np.take(src, idx, axis=axis) * weight.reshape(shape)
     return np.clip(acc >> _PRECISION_BITS, 0, 255).astype(np.uint8)
 
 
@@ -333,9 +335,9 @@ def _unpremultiply(image: np.ndarray) -> np.ndarray:
     """RGBa -> RGBA (La -> LA): Pillow's rgba2rgbA, colour * 255 / alpha
     (integer division, clipped) where alpha is neither 0 nor 255."""
     out = image.copy()
-    alpha = image[..., -1:].astype(np.int64)
+    alpha = image[..., -1:].astype(np.int32)
     keep = (alpha == 0) | (alpha == 255)
-    scaled = np.minimum(image[..., :-1].astype(np.int64) * 255
+    scaled = np.minimum(image[..., :-1].astype(np.int32) * 255
                         // np.where(keep, 1, alpha), 255)
     out[..., :-1] = np.where(keep, image[..., :-1], scaled)
     return out

@@ -9,12 +9,17 @@ BICUBIC (``scene/image_io.resize``).
 
 from __future__ import annotations
 
+import os
+import threading
+from concurrent.futures import ThreadPoolExecutor
+
 import numpy as np
 
 from neuralgaussiansplatting_torch.scene import image_io
 from neuralgaussiansplatting_torch.scene.cameras import Camera, CameraInfo
 
 _WARNED = False
+_WARN_LOCK = threading.Lock()
 
 
 def pil_to_array(image: np.ndarray, resolution) -> np.ndarray:
@@ -36,12 +41,13 @@ def load_cam(info: CameraInfo, uid: int, resolution_scale: float = 1.0,
     else:
         if resolution == -1:
             if orig_w > 1600:
-                if not _WARNED:
-                    print("[ INFO ] Encountered quite large input images "
-                          "(>1.6K pixels width), rescaling to 1.6K.\n If this "
-                          "is not desired, please explicitly specify "
-                          "'--resolution/-r' as 1")
-                    _WARNED = True
+                with _WARN_LOCK:
+                    if not _WARNED:
+                        print("[ INFO ] Encountered quite large input images "
+                              "(>1.6K pixels width), rescaling to 1.6K.\n If "
+                              "this is not desired, please explicitly "
+                              "specify '--resolution/-r' as 1")
+                        _WARNED = True
                 global_down = orig_w / 1600
             else:
                 global_down = 1
@@ -63,5 +69,10 @@ def load_cam(info: CameraInfo, uid: int, resolution_scale: float = 1.0,
 
 
 def camera_list(cam_infos, resolution_scale: float = 1.0, resolution: int = -1):
-    return [load_cam(c, i, resolution_scale, resolution)
-            for i, c in enumerate(cam_infos)]
+    """``load_cam`` of each camera, in order. The images are resized on a
+    pool of threads (numpy releases the interpreter lock in the resize's
+    array operations): a 1920x1080 view takes about a second alone."""
+    with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as pool:
+        return list(pool.map(
+            lambda item: load_cam(item[1], item[0], resolution_scale,
+                                  resolution), enumerate(cam_infos)))

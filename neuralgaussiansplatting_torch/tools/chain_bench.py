@@ -80,7 +80,7 @@ def chain(make_body, x0, iters: int = 8, reps: int = 3) -> float:
     return (tn - t1) / (iters - 1) * 1e3
 
 
-def _descend(params, grads):
+def descend(params, grads):
     """params - 1e-30 * grads, leaf by leaf (a leaf without a gradient
     stays)."""
     return type(params)(*(p if g is None else (p - 1e-30 * g).detach()
@@ -122,7 +122,7 @@ def run(which: str, device="cuda") -> float:
                     for w, g in zip(weights, grads[len(leaves):]):
                         if g is not None:
                             w.sub_(1e-30 * g)
-                return _descend(p, grads[:len(leaves)]), nets
+                return descend(p, grads[:len(leaves)]), nets
             return body
 
         t = chain(make_body, (params, nets), iters=iters, reps=REPS)
@@ -166,7 +166,7 @@ def run(which: str, device="cuda") -> float:
                 out = gr.render(cam, gm.GaussianParams(*leaves), alive, 3, bg,
                                 settings)
                 loss = losses.photometric_loss(out["render"], gt + s, 0.2)
-                return _descend(p, torch.autograd.grad(loss, leaves,
+                return descend(p, torch.autograd.grad(loss, leaves,
                                                        allow_unused=True))
             return body
 

@@ -18,6 +18,7 @@ import json
 import math
 import os
 from argparse import ArgumentParser
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -124,32 +125,42 @@ def main(argv=None):
     os.makedirs(os.path.join(args.out, "train"), exist_ok=True)
     os.makedirs(os.path.join(args.out, "test"), exist_ok=True)
 
-    for split, count, offset in [("train", args.views, 0.0),
-                                 ("test", max(args.views // 4, 2), 0.13)]:
-        frames = []
-        for i in range(count):
-            ang = 2 * math.pi * i / count + offset
-            elev = 0.35 + 0.3 * math.sin(i * 1.7)
-            cp, c2w = cam_at(ang, elev)
-            with torch.no_grad():
-                out = rast.rasterize(*cloud, 0, cp, bg, settings)
-            img = torch.clamp(out.color, 0, 1).permute(1, 2, 0).cpu().numpy()
-            alpha_f = 1.0 - out.final_t.cpu().numpy()
-            # NeRF-synthetic PNGs store straight colour, which the loader
-            # composites over the background; the render is premultiplied
-            # over black, so divide the alpha back out
-            straight = np.where(alpha_f[..., None] > 1e-6,
-                                img / np.maximum(alpha_f[..., None], 1e-6),
-                                0.0)
-            arr = (np.clip(straight, 0, 1) * 255).astype(np.uint8)
-            alpha = (np.clip(alpha_f, 0, 1) * 255).astype(np.uint8)
-            rgba = np.concatenate([arr, alpha[..., None]], axis=-1)
-            image_io.write_png(os.path.join(args.out, split, f"r_{i}.png"),
-                               rgba)
-            frames.append({"file_path": f"./{split}/r_{i}",
-                           "transform_matrix": c2w.tolist()})
-        with open(os.path.join(args.out, f"transforms_{split}.json"), "w") as f:
-            json.dump({"camera_angle_x": fovx, "frames": frames}, f, indent=2)
+    # the PNGs are encoded on a pool of threads (zlib and numpy release the
+    # interpreter lock) while the next views render
+    writes = []
+    with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as pool:
+        for split, count, offset in [("train", args.views, 0.0),
+                                     ("test", max(args.views // 4, 2), 0.13)]:
+            frames = []
+            for i in range(count):
+                ang = 2 * math.pi * i / count + offset
+                elev = 0.35 + 0.3 * math.sin(i * 1.7)
+                cp, c2w = cam_at(ang, elev)
+                with torch.no_grad():
+                    out = rast.rasterize(*cloud, 0, cp, bg, settings)
+                img = (torch.clamp(out.color, 0, 1).permute(1, 2, 0)
+                       .cpu().numpy())
+                alpha_f = 1.0 - out.final_t.cpu().numpy()
+                # NeRF-synthetic PNGs store straight colour, which the
+                # loader composites over the background; the render is
+                # premultiplied over black, so divide the alpha back out
+                straight = np.where(
+                    alpha_f[..., None] > 1e-6,
+                    img / np.maximum(alpha_f[..., None], 1e-6), 0.0)
+                arr = (np.clip(straight, 0, 1) * 255).astype(np.uint8)
+                alpha = (np.clip(alpha_f, 0, 1) * 255).astype(np.uint8)
+                rgba = np.concatenate([arr, alpha[..., None]], axis=-1)
+                writes.append(pool.submit(
+                    image_io.write_png,
+                    os.path.join(args.out, split, f"r_{i}.png"), rgba))
+                frames.append({"file_path": f"./{split}/r_{i}",
+                               "transform_matrix": c2w.tolist()})
+            with open(os.path.join(args.out, f"transforms_{split}.json"),
+                      "w") as f:
+                json.dump({"camera_angle_x": fovx, "frames": frames}, f,
+                          indent=2)
+    for w in writes:
+        w.result()
 
     # video trajectory (orbit)
     vframes = []

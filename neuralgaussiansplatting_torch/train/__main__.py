@@ -28,8 +28,9 @@ writes a ``torch.profiler`` trace of iterations 100-110;
 ``--detect_anomaly`` turns on autograd's anomaly mode; ``--data_parallel``
 counts processes, not visible devices, passes ``--tune_interval`` to the
 trainer and serves no viewer. ``main(argv)`` returns a summary of the run
-(evaluations, iteration times, the last loss, the viewer frames served)
-for callers in the same process.
+(evaluations, iteration times, tune-point drops, the last loss, the
+final alive count and capacity, the viewer frames served) for callers in
+the same process.
 """
 
 from __future__ import annotations
@@ -46,7 +47,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from neuralgaussiansplatting_torch import config, resolve_device
+from neuralgaussiansplatting_torch import config, platform_device, resolve_device
 from neuralgaussiansplatting_torch.gaussian_renderer import render
 from neuralgaussiansplatting_torch.models import gaussians as gm
 from neuralgaussiansplatting_torch.ops import rasterize as rast
@@ -184,7 +185,7 @@ def main(argv=None) -> dict:
         raise SystemExit("--data_parallel and --steps_per_call are "
                          "mutually exclusive (a DP step already consumes "
                          "N cameras per dispatch)")
-    platform = "cpu" if os.environ.get("NGS_PLATFORM") == "cpu" else "cuda"
+    platform = platform_device().type
     owns_group = False
     if args.data_parallel > 1:
         owns_group = not dist.is_initialized()
@@ -301,16 +302,24 @@ def train(args, dataset: config.ModelParams, device: torch.device) -> dict:
             tb_writer.close()
 
 
-def _finish(summary: dict, metrics, t_run: float) -> dict:
+def _finish(summary: dict, trainer, metrics, t_run: float) -> dict:
     if metrics is not None:
         summary["last_loss"] = metrics["loss"].item()
     summary["wall_s"] = time.perf_counter() - t_run
     summary["median_iter_ms"] = (statistics.median(summary["iter_ms"])
                                  if summary["iter_ms"] else None)
+    summary["alive"] = int(trainer.ts.gstate.alive.sum())
+    summary["capacity"] = trainer.ts.params.xyz.shape[0]
     print("\nTraining complete.")
     if metrics is not None:
         print(f"last loss {summary['last_loss']:.7f}")
+    print(alive_line(summary))
     return summary
+
+
+def alive_line(summary: dict) -> str:
+    """The last line of a run: its alive Gaussians and their capacity."""
+    return f"alive {summary['alive']} of capacity {summary['capacity']}"
 
 
 def train_loop(args, scene, trainer: loop.Trainer, device, tb_writer,
@@ -429,7 +438,7 @@ def train_loop(args, scene, trainer: loop.Trainer, device, tb_writer,
             window_it = iteration
     if profiler is not None:
         profiler.stop()
-    return _finish(summary, metrics, t_run)
+    return _finish(summary, trainer, metrics, t_run)
 
 
 def train_data_parallel(args, scene, gaussians, opt, settings, dataset,
@@ -500,7 +509,7 @@ def train_data_parallel(args, scene, gaussians, opt, settings, dataset,
             print(f"Training progress (DP x{n}): {it}/{opt.iterations} "
                   f"loss {metrics['loss'].item():.7f}")
     trainer.sync_model()
-    return _finish(summary, metrics, t_run)
+    return _finish(summary, trainer, metrics, t_run)
 
 
 if __name__ == "__main__":

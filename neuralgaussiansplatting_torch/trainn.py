@@ -47,7 +47,7 @@ from argparse import ArgumentParser
 import numpy as np
 import torch
 
-from neuralgaussiansplatting_torch import config, resolve_device
+from neuralgaussiansplatting_torch import config, platform_device
 from neuralgaussiansplatting_torch.models import gaussians as gm
 from neuralgaussiansplatting_torch.scene import Scene
 from neuralgaussiansplatting_torch.train import neural_loop, optim
@@ -138,8 +138,7 @@ def evaluate(trainer: neural_loop.NeuralTrainer, scene, device) -> dict:
 def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
     args.save_iterations.append(args.iterations)
-    device = resolve_device(
-        "cpu" if os.environ.get("NGS_PLATFORM") == "cpu" else "cuda")
+    device = platform_device()
     dataset = config.extract(config.ModelParams, args)
     if not dataset.model_path:
         dataset.model_path = os.path.join("./output/",

@@ -12,7 +12,6 @@ viewer against the train entry point's ``--ip`` / ``--port`` works there.
 from __future__ import annotations
 
 import math
-import os
 import sys
 from argparse import ArgumentParser
 
@@ -115,10 +114,9 @@ def main(argv=None):
     parser.add_argument("--height", type=int, default=540)
     args = parser.parse_args(argv)
 
-    from neuralgaussiansplatting_torch import resolve_device
+    from neuralgaussiansplatting_torch import platform_device
     from neuralgaussiansplatting_torch.models.gaussians import GaussianModel
-    g = GaussianModel(device=resolve_device(
-        "cpu" if os.environ.get("NGS_PLATFORM") == "cpu" else "cuda"))
+    g = GaussianModel(device=platform_device())
     g.load_ply(args.ply)
     return run_viewer(g.params, g.state.alive, g.active_sh_degree,
                       width=args.width, height=args.height)

@@ -1141,3 +1141,41 @@ def test_neural_step_repeats_on_gpu():
     for _ in range(20):
         again = torch.autograd.grad(nets.denoise(unet, kernels), unet, cot)[0]
         assert torch.equal(first, again)
+
+
+@pytest.mark.cuda
+def test_quality_harnesses_on_gpu(tmp_path):
+    """The quality-proof harness and the oracle's ``hold`` on a 64x64
+    demo-tool scene of the proof's 40k-Gaussian mixture: K1 once per
+    iteration and evaluation render, K2 once per iteration, the JSON
+    written, and the oracle reading the mixture back at the GT-recovery
+    level."""
+    _need_gpu()
+    import json
+    from neuralgaussiansplatting_torch.tools import exp_quality_oracle
+    from neuralgaussiansplatting_torch.tools import train_quality_proof
+    scene, out = str(tmp_path / "scene"), str(tmp_path / "proof")
+    argv = ["--scene", scene, "--out", out, "--iters", "30", "--size", "64",
+            "--views", "8", "--init_points", "500"]
+    train_quality_proof.generate(train_quality_proof.build_parser()
+                                 .parse_args(argv))
+    k1, k2 = blend_seq.launches, blend_seq.bwd_launches
+    result = train_quality_proof.main(argv)
+    # one evaluation (iteration 30) of 2 test and 5 train views
+    assert blend_seq.launches - k1 == 30 + 7
+    assert blend_seq.bwd_launches - k2 == 30
+    assert result["launches"] == {"K1": 37, "K2": 30}
+    with open(os.path.join(out, "quality_proof.json")) as f:
+        written = json.load(f)
+    assert [r["iteration"] for r in written["test_psnr"]] == [30]
+    assert math.isfinite(written["test_psnr"][0]["psnr"])
+    assert written["device"] == torch.cuda.get_device_name(0)
+    assert written["peak_memory_bytes"] > 0
+
+    k1, k2 = blend_seq.launches, blend_seq.bwd_launches
+    rows = exp_quality_oracle.main(["hold", "--scene", scene, "--iters",
+                                    "20"])["hold"]
+    assert blend_seq.launches - k1 == 20 + 2 * 2
+    assert blend_seq.bwd_launches - k2 == 20
+    assert [r["iteration"] for r in rows] == [0, 20]
+    assert all(r["psnr"] >= 40.0 for r in rows)

@@ -107,3 +107,31 @@ def test_maybe_grow_doubles_every_per_gaussian_tensor():
         assert g.mu.shape[0] == 320 and not g.mu[160:].any(), name
     assert not tt.ts.gstate.alive[160:].any()
     assert not tt.maybe_grow()
+
+
+def test_checkpoint_after_growth_restores_at_the_grown_capacity(tmp_path):
+    """A checkpoint written after ``maybe_grow`` (as a long run writes one)
+    restores at the grown capacity: parameters, state, Adam moments and
+    counts as saved, and the restored trainer steps on at that capacity."""
+    _, tt, cam = _trainers()
+    gt = to_torch(np.full((3, 32, 32), 0.5, np.float32))
+    tt.step(port_camera(cam), gt, 1)      # moments and counts past zero
+    tt.ts = tt.ts._replace(gstate=tt.ts.gstate._replace(
+        alive=tt.ts.gstate.alive | (torch.arange(160) < 140)))
+    assert tt.maybe_grow()
+    path = str(tmp_path / "chkpnt1.ckpt")
+    tt.save_checkpoint(path, 1)
+    _, fresh, _ = _trainers()
+    assert fresh.restore_checkpoint(path) == 1
+    assert fresh.ts.params.xyz.shape[0] == 320
+    for a, b in zip(tt.ts.params, fresh.ts.params):
+        assert torch.equal(a, b)
+    for a, b in zip(tt.ts.gstate, fresh.ts.gstate):
+        assert torch.equal(a, b)
+    for name, g in tt.ts.opt_state.items():
+        h = fresh.ts.opt_state[name]
+        assert torch.equal(g.mu, h.mu) and torch.equal(g.nu, h.nu), name
+        assert g.count == h.count == 1, name
+    m = fresh.step(port_camera(cam), gt, 2)
+    assert fresh.ts.params.xyz.shape[0] == 320
+    assert np.isfinite(float(m["loss"]))
