@@ -64,6 +64,17 @@ decode tool's two workloads (100k runs over 655,360 slots; 5M over
 port's ``tools.exp_decode_proto`` and ``tools.exp_mosaic_probe`` mains and
 every ``tools.chain_bench`` configuration once.
 
+Bench (the JAX package's bench and stage-timing tools, ported, at full
+width with the JAX tools' chained depths): ``tools.bench_garden`` on the
+garden phase's 5M cloud in its dense, ``--seqscatter`` and ``--scatter``
+modes (drops only what the settings' caps clip: the dense cap, and
+``--scatter``'s 4096 per 32x32 tile); then
+``bench``, ``tools.bench_suite`` (its four workloads, the 1080p probe
+without drops) and the four ``tools.exp_*_micro`` stage timers, every row.
+Each tool's launches are held to its chained steps; each chain is followed
+by one checked step (finite output), under the profiler beside the bench
+workloads.
+
 Quality (the JAX package's full-schedule harnesses, ported to
 ``neuralgaussiansplatting_torch/tools/``, at full width with the depth
 cut): ``train_quality_proof``'s 800x800 scene (100 train and 25 test
@@ -139,8 +150,16 @@ from neuralgaussiansplatting_torch.parallel.train_step import (
 from neuralgaussiansplatting_torch.scene import colmap as colmap_io
 from neuralgaussiansplatting_torch.scene import image_io
 from neuralgaussiansplatting_torch.scene import ply as ply_io
+from neuralgaussiansplatting_torch import bench
+from neuralgaussiansplatting_torch.tools import _micro
+from neuralgaussiansplatting_torch.tools import bench_garden
+from neuralgaussiansplatting_torch.tools import bench_suite
 from neuralgaussiansplatting_torch.tools import bench_trained_scene
 from neuralgaussiansplatting_torch.tools import chain_bench
+from neuralgaussiansplatting_torch.tools import exp_binning_micro
+from neuralgaussiansplatting_torch.tools import exp_bwd_micro
+from neuralgaussiansplatting_torch.tools import exp_neural_micro
+from neuralgaussiansplatting_torch.tools import exp_stage_micro
 from neuralgaussiansplatting_torch.tools import exp_quality_oracle
 from neuralgaussiansplatting_torch.tools import exp_decode_proto
 from neuralgaussiansplatting_torch.tools import exp_mosaic_probe
@@ -346,6 +365,16 @@ VIEWER_ITERS = 30
 # at which two runs with cuDNN's default algorithms and F.pad's reflect
 # padding were seen to part).
 NEURAL_REPEAT_SHORT, NEURAL_REPEAT_LONG = 5, 100
+# The bench phase: the JAX package's bench and stage-timing tools as the
+# port runs them (bench, tools.bench_suite, tools.bench_garden on the
+# garden phase's cloud in BENCH_GARDEN_MODES, the four exp_*_micro tools),
+# at full width with the JAX tools' chained depths. Each chain a tool runs
+# is followed by one more step of its body from its first carry, whose
+# output must be finite; beside the bench workloads that step runs under
+# the profiler (its device-busy share). A chain of ``iters`` steps, best of
+# ``reps``, therefore launches each of its kernels chain_launches(iters,
+# reps) times.
+BENCH_GARDEN_MODES = ("dense", "seqscatter", "scatter")
 # The quality phase: the JAX package's full-schedule harnesses, ported to
 # neuralgaussiansplatting_torch/tools/, at their full width (the proof's
 # 800x800 scene of 100 train and 25 test views, 40k GT Gaussians and a 10k
@@ -1648,7 +1677,7 @@ def phase_garden():
     render + L1+SSIM + backward passes with finite gradients, and the image
     against the seq (32x32) render of the same cloud at the tiling band
     gate; peak memory. Then ``garden_seq`` with the seq settings; returns
-    its rows."""
+    its rows and the cloud."""
     t0 = time.perf_counter()
     params, state, cam = demo.demo_scene(n=GARDEN_N, w=GARDEN_W, h=GARDEN_H,
                                          seed=3, sh_degree=SH_DEGREE)
@@ -1750,7 +1779,7 @@ def phase_garden():
     print(f"garden: peak memory {peak:.2f} GiB")
     rows = garden_pallas(params, state, cam, settings)
     rows.update(garden_seq(params, state, cam, seq))
-    return rows
+    return rows, (params, state, cam)
 
 
 def garden_pallas(params, state, cam, settings):
@@ -2429,6 +2458,212 @@ def phase_tools():
               + ", ".join(f"{k} {v}" for k, v in counts.items() if v))
     return k6, k7, decoded
 
+
+
+# -- the bench phase ------------------------------------------------------
+
+def chain_launches(iters: int, reps: int) -> int:
+    """Steps of one checked chain: ``chain``'s (reps + 1) * (iters + 1) and
+    the checked step after it."""
+    return (reps + 1) * (iters + 1) + 1
+
+
+@contextlib.contextmanager
+def checked_chains(owners, label: str, profiled: bool):
+    """Each owner's ``chain`` replaced by the real one followed by one more
+    step of the body from its first carry: its output must be finite, and
+    with ``profiled`` it runs under the profiler, whose device-busy share
+    is printed beside the chain's time."""
+    real = chain_bench.chain
+    from torch.profiler import ProfilerActivity, profile
+
+    def chain(make_body, x0, iters=8, reps=3):
+        ms = real(make_body, x0, iters=iters, reps=reps)
+        check(math.isfinite(ms) and ms > 0, f"{label}: {ms} ms per step")
+        body = make_body()
+        torch.cuda.synchronize()
+        with (profile(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA])
+              if profiled else contextlib.nullcontext()) as prof:
+            t0 = time.perf_counter()
+            out = body(x0, 0.0)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        check(all(torch.isfinite(leaf).all().item()
+                  for leaf in chain_bench._leaves(out)
+                  if leaf.is_floating_point()),
+              f"{label}: a chained step's output is not finite")
+        if profiled:
+            print(f"{label}, one step of the chain ({ms:.3f} ms chained):",
+                  end=" ")
+            report_profile(prof, wall_ms, 1, "step")
+        return ms
+
+    saved = [(owner, owner.chain) for owner in owners]
+    for owner, _ in saved:
+        owner.chain = chain
+    try:
+        yield
+    finally:
+        for owner, fn in saved:
+            owner.chain = fn
+
+
+def check_tool_launches(label: str, got: dict, want: dict):
+    """A tool's launches (its own count) against ``want``, and the
+    kernels' counters since the last reset against the same."""
+    torch.cuda.synchronize()
+    want = {k: v for k, v in want.items() if v}
+    counted = {k: v for k, v in quality_counts().items() if v}
+    check(got == want and counted == want,
+          f"{label} launched {got} (counters {counted}), expected {want}")
+
+
+def expected_drops(params, state, cam, settings, num_rendered: int) -> int:
+    """The instances ``settings``' caps must drop: the dense cap's clip,
+    then each tile's instances past ``max_per_tile``, counted by one
+    binning without the per-tile cap into a packed buffer that holds every
+    segment."""
+    tiles_x, tiles_y = settings.tiles_for(cam.width, cam.height)
+    with torch.no_grad():
+        pre = pp.preprocess_gaussians(
+            params.xyz, gm.get_scaling(params), gm.get_rotation(params),
+            gm.get_opacity(params, state.alive), gm.get_features(params),
+            SH_DEGREE, cam, settings.block_x, settings.block_y,
+            tight=settings.tight_culling)
+        inst = binning.bin_gaussians(
+            pre, tiles_x, tiles_y, settings.capacity, 1 << 30,
+            settings.chunk, pack_keys=settings.fast_sort,
+            packed_capacity=num_rendered + tiles_x * tiles_y * settings.chunk,
+            precise_cull=settings.precise_cull, block_x=settings.block_x,
+            block_y=settings.block_y, width=cam.width, height=cam.height,
+            expand=settings.expand, dense_cap=settings.dense_cap)
+    over = torch.clamp_min(inst.tile_count.long() - settings.max_per_tile, 0)
+    return int(inst.dropped) + int(over.sum())
+
+
+def phase_bench_garden(params, state, cam) -> dict:
+    """``tools.bench_garden``'s run on the garden phase's cloud in each of
+    BENCH_GARDEN_MODES: its JSON, launches (the probe and sized renders,
+    the chained forwards and fwd+bwd steps), drops equal to what the
+    settings' caps clip, finite times. Returns {mode: JSON}."""
+    t_phase = time.perf_counter()
+    fwd = chain_launches(bench_garden.FWD_ITERS, bench_garden.REPS)
+    fb = chain_launches(bench_garden.FWDBWD_ITERS, bench_garden.REPS)
+    results = {}
+    for mode in BENCH_GARDEN_MODES:
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with checked_chains([bench_garden], f"bench_garden {mode}", True):
+            res = bench_garden.run(params, state, cam, mode)
+        print(json.dumps(res))
+        kf, kb = ("K4", "K5") if mode == "scatter" else ("K1", "K2")
+        check_tool_launches(f"bench_garden {mode}", res["launches"],
+                            {kf: 2 + fwd + fb, kb: fb})
+        # the JAX tool's settings drop nothing but what their caps clip:
+        # the dense mode's cap of 6 tiles per Gaussian, and in --scatter
+        # 4096 per tile at the settings' default 32x32 tiles
+        mon = res["monitors"]
+        settings = bench_garden.sized_settings(
+            mode, bench_garden.probe_settings(mode), res["capacity"],
+            res["packed_capacity"])
+        clip = expected_drops(params, state, cam, settings,
+                              mon["num_rendered"])
+        dropped = mon["dropped"]
+        check(dropped == clip, f"bench_garden {mode} dropped {dropped}, its "
+              f"caps clip {clip}")
+        check(all(math.isfinite(res[k]) and res[k] > 0
+                  for k in ("fwd_ms", "fwdbwd_ms")),
+              f"bench_garden {mode}: {res}")
+        print(f"bench_garden {mode}: forward {res['fwd_ms']} ms, fwd+bwd "
+              f"{res['fwdbwd_ms']} ms (chained eager, host clock), "
+              f"dropped {dropped}, peak "
+              f"{res['peak_memory_bytes'] / 2**30:.2f} GiB; "
+              f"{time.perf_counter() - t0:.1f} s")
+        results[mode] = res
+    print(f"bench garden: the phase took "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return results
+
+
+def micro_rows_ok(label: str, result: dict, count: int, no_counterpart):
+    rows = result["rows"]
+    check(len(rows) == count, f"{label}: {len(rows)} rows, not {count}")
+    for row in rows:
+        if row["name"] in no_counterpart:
+            check(row["ms"] is None, f"{label}: row {row['name']} timed")
+        else:
+            check(row["ms"] is not None and math.isfinite(row["ms"])
+                  and row["ms"] > 0, f"{label}: row {row}")
+
+
+def phase_bench(tmp) -> dict:
+    """The bench tools and stage timers from their ``main`` as a user runs
+    them: ``bench``, ``tools.bench_suite`` (all four workloads), then
+    ``exp_stage_micro`` (pallas and ``--seq``), ``exp_bwd_micro``,
+    ``exp_neural_micro`` and ``exp_binning_micro`` (and its variants), all
+    rows. Checks each one's launches, finite results and the suite's probe
+    (no drops) and file. Returns {tool: launches}."""
+    t_phase = time.perf_counter()
+    launches = {}
+
+    reset_launch_counts()
+    with checked_chains([bench], "bench", True):
+        res = bench.main([])
+    n = chain_launches(bench.ITERS, bench.REPS)
+    check_tool_launches("bench", res["launches"], {"K1": n, "K2": n})
+    check(math.isfinite(res["value"]) and res["value"] > 0, f"bench {res}")
+    launches["bench"] = res["launches"]
+
+    reset_launch_counts()
+    out = os.path.join(tmp, "bench_suite_results.json")
+    with checked_chains([bench_suite], "bench_suite", True):
+        results = bench_suite.main(["--out", out])
+    with open(out) as f:
+        check(json.load(f) == results, "bench_suite wrote other records")
+    fb = chain_launches(bench_suite.ITERS, bench_suite.REPS)
+    want = [{"K1": fb, "K2": fb}, {"K1": fb, "K2": fb}, {"K1": 1 + fb},
+            {"K3": chain_launches(bench_suite.NEURAL_ITERS,
+                                  bench_suite.REPS)}]
+    check([r["launches"] for r in results] == want,
+          f"bench_suite launched {[r['launches'] for r in results]}, "
+          f"expected {want}")
+    total = {}
+    for r in want:
+        for k, v in r.items():
+            total[k] = total.get(k, 0) + v
+    check_tool_launches("bench_suite", total, total)
+    check(all(math.isfinite(r["value"]) and r["value"] > 0
+              for r in results), f"bench_suite {results}")
+    launches["bench_suite"] = total
+    print(f"bench: bench and bench_suite took "
+          f"{time.perf_counter() - t_phase:.1f} s")
+
+    c8 = chain_launches(exp_stage_micro.ITERS, exp_stage_micro.REPS)
+    micro = [
+        ("exp_stage_micro", exp_stage_micro, [], 9, {"K4": 5 * c8,
+                                                     "K5": 4 * c8}),
+        ("exp_stage_micro --seq", exp_stage_micro, ["--seq"], 9,
+         {"K1": 5 * c8, "K2": 4 * c8}),
+        ("exp_bwd_micro", exp_bwd_micro, [], 8, {"K1": 1, "K2": 1 + c8}),
+        ("exp_neural_micro", exp_neural_micro, [], 7,
+         {"K3": 6 * chain_launches(exp_neural_micro.ITERS,
+                                   exp_neural_micro.REPS)}),
+        ("exp_binning_micro", exp_binning_micro, [], 8, {}),
+        ("exp_binning_micro variants", exp_binning_micro, ["variants"], 4,
+         {})]
+    for label, tool, argv, count, want in micro:
+        t0 = time.perf_counter()
+        reset_launch_counts()
+        with checked_chains([_micro, exp_neural_micro], label, False):
+            res = tool.main(argv)
+        check_tool_launches(label, res["launches"], want)
+        micro_rows_ok(label, res, count, tool.NO_COUNTERPART)
+        print(f"{label}: {count} rows, launches {res['launches'] or 'none'}"
+              f"; {time.perf_counter() - t0:.1f} s")
+        launches[label] = res["launches"]
+    print(f"bench: the phase took {time.perf_counter() - t_phase:.1f} s")
+    return launches
 
 
 # -- the parallel, multi-step, viewer and repeatability phases ------------
@@ -3194,9 +3429,14 @@ def main():
     rows.update(phase_k4_k5_parity(params, state, pallas, pallas_32))
     rows["K4"]["launches"], rows["K5"]["launches"] = phase_pallas_train(
         params, state)
-    garden = phase_garden()
+    garden, cloud = phase_garden()
     for name in ("K1", "K2", "K4", "K5"):
         rows[name]["garden"] = garden[name]
+    bench_launches = {
+        f"bench_garden {mode}": res["launches"]
+        for mode, res in phase_bench_garden(*cloud).items()}
+    del cloud
+    torch.cuda.empty_cache()
 
     nparams, nstate = neural_scene()
     rows["K3"] = phase_k3_parity(nparams, nstate)
@@ -3216,6 +3456,14 @@ def main():
         entry.update(chained_ms=result["k6_ms"],
                      chained_plain_ms=result["plain_ms"],
                      chained_library_ms=result["repeat_interleave_ms"])
+
+    with tempfile.TemporaryDirectory() as tmp:
+        bench_launches.update(phase_bench(tmp))
+    for name in rows:
+        used = {tool: counts[name] for tool, counts in bench_launches.items()
+                if counts.get(name)}
+        if used:
+            rows[name]["bench_launches"] = used
 
     with tempfile.TemporaryDirectory() as tmp:
         quality = phase_quality(tmp)

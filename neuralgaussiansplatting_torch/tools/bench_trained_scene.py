@@ -41,8 +41,8 @@ from neuralgaussiansplatting_torch.ops import rasterize as rast
 from neuralgaussiansplatting_torch.ops.preprocess import CameraParams
 from neuralgaussiansplatting_torch.scene.scene import search_for_max_iteration
 from neuralgaussiansplatting_torch.tools import _harness
-from neuralgaussiansplatting_torch.tools.chain_bench import chain, descend
-from neuralgaussiansplatting_torch.utils import losses
+from neuralgaussiansplatting_torch.tools.chain_bench import (
+    chain, forward_body, fwd_bwd_body)
 
 PROBE = rast.make_settings("seq", capacity=1 << 22, max_per_tile=8192,
                            fast_sort=True, tight_culling=True,
@@ -107,34 +107,13 @@ def main(argv=None) -> dict:
     ademand = int(out["aligned_demand"])
     settings = sized_settings(nr, ademand)
 
-    def fwd_body():
-        def body(carry, s):
-            # the dependency runs through xyz, so every stage is inside
-            # each step
-            p, fb = carry
-            with torch.no_grad():
-                o = render(cam, p._replace(
-                    xyz=p.xyz + (1e-30 * fb.mean() + s)), alive, 3, bg,
-                    settings)
-            return p, o["render"]
-        return body
-
-    t_fwd = chain(fwd_body, (params, torch.zeros((3, h, w), device=dev)),
+    t_fwd = chain(lambda: forward_body(cam, alive, 3, settings),
+                  (params, torch.zeros((3, h, w), device=dev)),
                   iters=FWD_ITERS, reps=REPS)
 
     gt = torch.zeros((3, h, w), device=dev)
-
-    def fb_body():
-        def body(p, s):
-            leaves = [a.detach().requires_grad_() for a in p]
-            o = render(cam, gm.GaussianParams(*leaves), alive, 3, bg,
-                       settings)
-            loss = losses.photometric_loss(o["render"], gt + s, 0.2)
-            return descend(p, torch.autograd.grad(loss, leaves,
-                                                   allow_unused=True))
-        return body
-
-    t_fb = chain(fb_body, params, iters=FWDBWD_ITERS, reps=REPS)
+    t_fb = chain(lambda: fwd_bwd_body(cam, alive, 3, settings, gt), params,
+                 iters=FWDBWD_ITERS, reps=REPS)
 
     result = {
         "model": ply, "n_alive": n_alive, "resolution": f"{w}x{h}",

@@ -23,6 +23,9 @@ import torch
 
 from neuralgaussiansplatting_torch import resolve_device
 
+# what a chained time is in the port: eager steps, host clock over runs
+# that each end in one synchronisation (the bench tools' "timing" key)
+TIMING = "chained eager, host clock"
 CONFIGS = ("classic_fb", "classic_fb_seq", "classic_fwd_seq",
            "classic_fwd1080_seq", "classic_fwd1080", "neural_fb",
            "neural_fb_bf16")
@@ -36,7 +39,9 @@ def iters_for(which: str) -> int:
 
 def _leaves(x) -> list:
     """The tensors of a carry: a tensor, a module's parameters, or those of
-    a tuple, list or dict of carries."""
+    a tuple, list or dict of carries; a host number or None holds none."""
+    if x is None or isinstance(x, (int, float)):
+        return []
     if isinstance(x, torch.Tensor):
         return [x]
     if isinstance(x, torch.nn.Module):
@@ -87,14 +92,79 @@ def descend(params, grads):
                           for p, g in zip(params, grads)))
 
 
+def fwd_bwd_body(cam, alive, sh_degree: int, settings, gt: torch.Tensor,
+                 lambda_dssim: float = 0.2):
+    """A chain body (params, eps) -> params: one ``render`` with
+    ``settings``, L1+SSIM against ``gt + eps``, the backward, and
+    ``descend`` (the JAX tools' chained training step)."""
+    from neuralgaussiansplatting_torch import gaussian_renderer as gr
+    from neuralgaussiansplatting_torch.models import gaussians as gm
+    from neuralgaussiansplatting_torch.utils import losses
+
+    bg = torch.zeros(3, device=gt.device)
+
+    def body(p, s):
+        leaves = [a.detach().requires_grad_() for a in p]
+        out = gr.render(cam, gm.GaussianParams(*leaves), alive, sh_degree, bg,
+                        settings)
+        loss = losses.photometric_loss(out["render"], gt + s, lambda_dssim)
+        return descend(p, torch.autograd.grad(loss, leaves,
+                                               allow_unused=True))
+    return body
+
+
+def forward_body(cam, alive, sh_degree: int, settings):
+    """A chain body (params, image) -> (params, image): one render without
+    gradients whose means are shifted by 1e-30 x the previous image's mean
+    plus eps. The dependency runs through xyz, so preprocess, binning and
+    the sort are inside each step, as in the JAX tools."""
+    from neuralgaussiansplatting_torch import gaussian_renderer as gr
+
+    bg = torch.zeros(3, device=alive.device)
+
+    def body(carry, s):
+        p, fb = carry
+        with torch.no_grad():
+            out = gr.render(cam, p._replace(
+                xyz=p.xyz + (1e-30 * fb.mean() + s)), alive, sh_degree, bg,
+                settings)
+        return p, out["render"]
+    return body
+
+
+def neural_fwd_bwd_body(cam, gt: torch.Tensor, capacity: int,
+                        dtype=torch.float32):
+    """A chain body (params, decoders) -> (params, decoders): one
+    ``render2`` with z-buffer ``capacity``, L1+SSIM (lambda 0.2) against
+    ``gt + eps``, the backward, and both stepped by -1e-30 x their
+    gradients (the JAX tools' chained neural training step)."""
+    from neuralgaussiansplatting_torch import gaussian_renderer as gr
+    from neuralgaussiansplatting_torch.models import gaussians as gm
+    from neuralgaussiansplatting_torch.utils import losses
+
+    def body(carry, s):
+        p, nets = carry
+        leaves = [a.detach().requires_grad_() for a in p]
+        weights = [w for m in nets.values() for w in m.parameters()]
+        out = gr.render2(cam, gm.GaussianParams(*leaves), nets,
+                         capacity=capacity, dtype=dtype)
+        loss = losses.photometric_loss(out["render"], gt + s, 0.2)
+        grads = torch.autograd.grad(loss, leaves + weights,
+                                    allow_unused=True)
+        with torch.no_grad():
+            for w, g in zip(weights, grads[len(leaves):]):
+                if g is not None:
+                    w.sub_(1e-30 * g)
+        return descend(p, grads[:len(leaves)]), nets
+    return body
+
+
 def run(which: str, device="cuda") -> float:
     """Build configuration ``which`` on ``device``, chain it and print its
     line; returns ms per iteration."""
     from neuralgaussiansplatting_torch import demo
     from neuralgaussiansplatting_torch import gaussian_renderer as gr
-    from neuralgaussiansplatting_torch.models import gaussians as gm
     from neuralgaussiansplatting_torch.ops import rasterize as rast
-    from neuralgaussiansplatting_torch.utils import losses
 
     if which not in CONFIGS:
         raise ValueError(f"unknown config {which!r}; one of {CONFIGS}")
@@ -108,24 +178,8 @@ def run(which: str, device="cuda") -> float:
         nets = gr.init_decoders(0, device=dev)
         gt = torch.zeros((3, 800, 800), device=dev)
 
-        def make_body():
-            def body(carry, s):
-                p, nets = carry
-                leaves = [a.detach().requires_grad_() for a in p]
-                weights = [w for m in nets.values() for w in m.parameters()]
-                out = gr.render2(cam, gm.GaussianParams(*leaves), nets,
-                                 capacity=1 << 21, dtype=dtype)
-                loss = losses.photometric_loss(out["render"], gt + s, 0.2)
-                grads = torch.autograd.grad(loss, leaves + weights,
-                                            allow_unused=True)
-                with torch.no_grad():
-                    for w, g in zip(weights, grads[len(leaves):]):
-                        if g is not None:
-                            w.sub_(1e-30 * g)
-                return descend(p, grads[:len(leaves)]), nets
-            return body
-
-        t = chain(make_body, (params, nets), iters=iters, reps=REPS)
+        t = chain(lambda: neural_fwd_bwd_body(cam, gt, 1 << 21, dtype),
+                  (params, nets), iters=iters, reps=REPS)
         print("neural2 fwd+bwd 800^2 (%s): %7.1f ms  (%5.2f Mpix/s)"
               % (str(dtype).removeprefix("torch."), t, 800 * 800 / t / 1e3),
               flush=True)
@@ -135,7 +189,6 @@ def run(which: str, device="cuda") -> float:
     params, state, cam = demo.demo_scene(n=100_000, w=w, h=h, sh_degree=3,
                                          device=dev)
     alive = state.alive
-    bg = torch.zeros(3, device=dev)
     settings = {
         "classic_fb": rast.RasterizeSettings(
             capacity=1216 * 1024, max_per_tile=2048, chunk=128,
@@ -159,37 +212,16 @@ def run(which: str, device="cuda") -> float:
 
     if which in ("classic_fb", "classic_fb_seq"):
         gt = torch.zeros((3, h, w), device=dev)
-
-        def make_body():
-            def body(p, s):
-                leaves = [a.detach().requires_grad_() for a in p]
-                out = gr.render(cam, gm.GaussianParams(*leaves), alive, 3, bg,
-                                settings)
-                loss = losses.photometric_loss(out["render"], gt + s, 0.2)
-                return descend(p, torch.autograd.grad(loss, leaves,
-                                                       allow_unused=True))
-            return body
-
-        t = chain(make_body, params, iters=iters, reps=REPS)
+        t = chain(lambda: fwd_bwd_body(cam, alive, 3, settings, gt), params,
+                  iters=iters, reps=REPS)
         label = ("classic fwd+bwd 800^2 100k SH3:" if which == "classic_fb"
                  else "seq fwd+bwd 800^2 100k SH3:  ")
         print("%s %7.1f ms  (%5.2f Mpix/s)" % (label, t, w * h / t / 1e3),
               flush=True)
         return t
 
-    def make_body():
-        def body(carry, s):
-            # the dependency runs through xyz, so preprocess, binning and
-            # the sort are inside each step, as in the JAX tool
-            p, fb = carry
-            with torch.no_grad():
-                out = gr.render(cam, p._replace(
-                    xyz=p.xyz + (1e-30 * fb.mean() + s)), alive, 3, bg,
-                    settings)
-            return p, out["render"]
-        return body
-
-    t = chain(make_body, (params, torch.zeros((3, h, w), device=dev)),
+    t = chain(lambda: forward_body(cam, alive, 3, settings),
+              (params, torch.zeros((3, h, w), device=dev)),
               iters=iters, reps=REPS)
     if which == "classic_fwd_seq":
         print("seq fwd 800^2 100k SH3:       %7.1f ms  (%5.2f Mpix/s)"

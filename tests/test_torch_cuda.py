@@ -1179,3 +1179,69 @@ def test_quality_harnesses_on_gpu(tmp_path):
     assert blend_seq.bwd_launches - k2 == 20
     assert [r["iteration"] for r in rows] == [0, 20]
     assert all(r["psnr"] >= 40.0 for r in rows)
+
+
+@pytest.mark.cuda
+def test_bench_tools_on_gpu(tmp_path, monkeypatch):
+    """The bench tools and stage timers on the card on clouds of a few
+    thousand Gaussians, at their chained depths: each kernel launched once
+    per chained step (chain runs (reps + 1) * (iters + 1) steps), the
+    probes' renders besides, finite times, no drops."""
+    _need_gpu()
+    import json
+    from neuralgaussiansplatting_torch import bench
+    from neuralgaussiansplatting_torch.tools import bench_garden
+    from neuralgaussiansplatting_torch.tools import bench_suite
+    from neuralgaussiansplatting_torch.tools import exp_binning_micro
+    from neuralgaussiansplatting_torch.tools import exp_bwd_micro
+    from neuralgaussiansplatting_torch.tools import exp_neural_micro
+    from neuralgaussiansplatting_torch.tools import exp_stage_micro
+
+    def steps(iters, reps):
+        return (reps + 1) * (iters + 1)
+
+    def small(**kw):
+        return demo.demo_scene(**{**kw, "n": 4000})
+
+    res = bench.run(*small(w=800, h=800, sh_degree=3))
+    n = steps(bench.ITERS, bench.REPS)
+    assert res["launches"] == {"K1": n, "K2": n}
+    assert math.isfinite(res["value"]) and res["value"] > 0
+
+    monkeypatch.setattr(bench_suite, "demo_scene", small)
+    out = str(tmp_path / "suite.json")
+    results = bench_suite.main(["--out", out])
+    fb = steps(bench_suite.ITERS, bench_suite.REPS)
+    assert [r["launches"] for r in results] == [
+        {"K1": fb, "K2": fb}, {"K1": fb, "K2": fb}, {"K1": 1 + fb},
+        {"K3": steps(bench_suite.NEURAL_ITERS, bench_suite.REPS)}]
+    with open(out) as f:
+        assert json.load(f) == results
+
+    cloud = bench_garden.garden_cloud(20_000, device="cuda")
+    fwd = steps(bench_garden.FWD_ITERS, bench_garden.REPS)
+    fb = steps(bench_garden.FWDBWD_ITERS, bench_garden.REPS)
+    for mode in bench_garden.MODES:
+        res = bench_garden.run(*cloud, mode)
+        kf, kb = ("K4", "K5") if mode == "scatter" else ("K1", "K2")
+        assert res["launches"] == {kf: 2 + fwd + fb, kb: fb}, mode
+        assert res["monitors"]["dropped"] == 0 or mode == "dense"
+        assert res["peak_memory_bytes"] > 0
+        assert res["device"] == torch.cuda.get_device_name(0)
+
+    scene = small(w=800, h=800, sh_degree=3)
+    c8 = steps(exp_stage_micro.ITERS, exp_stage_micro.REPS)
+    res = exp_stage_micro.run(*scene)
+    assert res["launches"] == {"K4": 5 * c8, "K5": 4 * c8}
+    res = exp_stage_micro.run(*scene, seq=True)
+    assert res["launches"] == {"K1": 5 * c8, "K2": 4 * c8}
+    res = exp_bwd_micro.run(*scene)
+    assert res["launches"] == {"K1": 1, "K2": 1 + c8}
+    res = exp_neural_micro.run(*scene)
+    assert res["launches"] == {"K3": 6 * steps(exp_neural_micro.ITERS,
+                                               exp_neural_micro.REPS)}
+    for tool_res in (exp_binning_micro.run(*scene),
+                     exp_binning_micro.run(*scene, variants=True)):
+        assert tool_res["launches"] == {}
+        assert all(r["ms"] is None or (math.isfinite(r["ms"]) and r["ms"] > 0)
+                   for r in tool_res["rows"])
