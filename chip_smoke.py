@@ -60,9 +60,11 @@ runs that must repeat to the bit (5 steps on one view, 100 over eight).
 
 Tools: K6 against its plain version and ``binning._expand_runs`` at the
 decode tool's two workloads (100k runs over 655,360 slots; 5M over
-8,388,608) and on an edge case, K7's ten probes against theirs; then the
-port's ``tools.exp_decode_proto`` and ``tools.exp_mosaic_probe`` mains and
-every ``tools.chain_bench`` configuration once.
+8,388,608) and on an edge case, K7's ten probes against theirs, each
+then timed against its one-call PyTorch counterpart and an empty kernel
+(the launch floor) in alternating turns; then the port's
+``tools.exp_decode_proto`` and ``tools.exp_mosaic_probe`` mains and every
+``tools.chain_bench`` configuration once.
 
 Bench (the JAX package's bench and stage-timing tools, ported, at full
 width with the JAX tools' chained depths): ``tools.bench_garden`` on the
@@ -174,7 +176,9 @@ from neuralgaussiansplatting_torch.train import neural_loop
 from neuralgaussiansplatting_torch.train import optim
 from neuralgaussiansplatting_torch.utils import losses
 from neuralgaussiansplatting_torch.utils import lpips
-from neuralgaussiansplatting_torch.utils.timing import cuda_ms, device_ms
+from neuralgaussiansplatting_torch.utils.timing import (cuda_ms, device_ms,
+                                                        parts_ms,
+                                                        profiled)
 from neuralgaussiansplatting_torch.viewer import network_gui
 
 W = H = 800
@@ -334,12 +338,43 @@ K6_TOOL_LAUNCHES = len(K6_WORKLOADS) * (
 # chain of 4 steps, best of 2.
 HOST_REPS, HOST_ROUNDS = 200, 7
 CHAIN_TURNS, CHAIN_ITERS, CHAIN_REPS = 3, 20, 5
-# K7's p6_transpose against x.t().contiguous(): device time per launch in
-# this many alternating turns of 50 launches each
-K7_TURNS = 5
-# K7: each probe reads x (16, 128) float32 once and writes its output once;
-# its few float adds are nothing beside that.
+# K7: each probe against its one-call PyTorch counterpart
+# (exp_mosaic_probe.COUNTERPARTS) and the library's empty kernel, the
+# launch floor, in K7_TURNS alternating turns; a turn times K7_REPS
+# launches of each in one profiler window (device time per launch) and
+# K7_DISPATCH_REPS back-to-back launches of each (CUDA events). The
+# targets: p6_transpose at or below x.t().contiguous(), every probe within
+# K7_FLOOR_GAP_MS of the floor, each probe's back-to-back time within
+# K7_DISPATCH_RATIO times its counterpart's. A probe that misses one is
+# reported, not failed.
+K7_TURNS, K7_REPS, K7_DISPATCH_REPS = 7, 50, 200
+K7_FLOOR_GAP_MS, K7_DISPATCH_RATIO = 0.0005, 2.0
+# the probes' and the floor's kernel names (csrc/mosaic_probe.cu's
+# namespace k7), demangled or not
+K7_KERNEL = re.compile(r"\bk7::|_ZN2k7")
 K7_PROBES = exp_mosaic_probe.PROBES
+# The launches each part of a k7 window makes per call: the probe's and
+# the floor's one, and each counterpart's as the profiler reads it with
+# every record kept: one, but torch.dot's two. Late in this run the
+# profiler keeps as few as 23 of a kernel's 50 records in a window, so a
+# window is read when each part shows these launches and each kernel
+# kept K7_LEAST_KEPT of its records, the base of its mean record time.
+K7_LIBRARY_LAUNCHES = {"p5_smem_2d": 2}
+K7_LEAST_KEPT = 0.2
+# K7's bound by bytes: each probe writes its output once and reads once the
+# elements of x (16, 128) float32 that its function needs, not those its
+# idiom copies (p3's bulk copy moves row 0 for x[0, 5]); its few float adds
+# are nothing beside that. name -> number of elements of x read.
+K7_READS = {
+    "p1_roll_11_bcast": lambda x: 1,                      # x[0, 3]
+    "p1b_dynroll": lambda x: len(                         # x[0, 0], x[0, k]
+        {0, exp_mosaic_probe._floor_mod_lane(x)}),
+    "p2_twostep": lambda x: 4,                            # x[0, :4]
+    "p6_transpose": lambda x: x.numel(),
+    **{f"p3_smem_{kb}kb": lambda x: 1 for kb in (2, 4, 8, 16)},  # x[0, 5]
+    "p4_smem_loop": lambda x: 128,                        # x[0]
+    "p5_smem_2d": lambda x: 256,                          # x[0], x[1]
+}
 # the blend and z-buffer kernels each configuration of tools.chain_bench
 # launches once per step
 CHAIN_KERNELS = {"classic_fb": ("K4", "K5"), "classic_fb_seq": ("K1", "K2"),
@@ -2362,17 +2397,22 @@ def k6_host_and_chain():
 
 def phase_k7():
     """Each K7 probe vs its plain version, exactly, on the tool's arange
-    input and a seeded input with |x| < 2^20 and a negative x[0, 0]; per
-    launch times (CUDA events). Returns the kernels-line row: the slowest
-    probe's numbers, every probe's under "probes"."""
+    input and a seeded input with |x| < 2^20 and a negative x[0, 0]; then
+    each probe, its one-call counterpart (held to the plain version in
+    tests/test_torch_probes.py) and the empty floor kernel timed in
+    K7_TURNS alternating turns, and the wrapper's host cost part by part.
+    Returns the kernels-line row: the slowest probe's numbers, every
+    probe's under "probes"."""
     gen = torch.Generator(device="cuda").manual_seed(13)
     rand = (torch.rand((16, 128), generator=gen, device="cuda") * 2 - 1) \
         * 2 ** 20
     rand[0, 0] = -300.75
     arange = torch.arange(16 * 128, dtype=torch.float32,
                           device="cuda").reshape(16, 128)
-    probes, worst = [], 0.0
+    probes = []
     for name, (kernel, plain) in K7_PROBES.items():
+        call, library = exp_mosaic_probe.COUNTERPARTS[name]
+        worst = 0.0
         for label, x in (("arange", arange), ("random", rand)):
             got = kernel(x)
             torch.cuda.synchronize()
@@ -2381,47 +2421,183 @@ def phase_k7():
             check(torch.equal(got, want), f"K7 probe {name} differs from its "
                   f"plain version on the {label} input: max|d| {err}")
             worst = max(worst, err)
-        if name == "p6_transpose":
-            ms, library_ms = k7_transpose_turns(kernel, arange)
-        else:
-            ms, library_ms = device_ms(lambda: kernel(arange), reps=50), None
-        plain_ms = cuda_ms(lambda: plain(arange), reps=5)
-        dispatch_ms = cuda_ms(lambda: kernel(arange), reps=200, warmup=5)
-        t_bytes = (arange.numel() + got.numel()) * 4 / HBM_BYTES_PER_S * 1e3
-        probes.append({"name": name,
-                       "replaces": exp_mosaic_probe.REPLACES[name],
-                       "ms": ms, "plain_ms": plain_ms, "bound_ms": t_bytes,
-                       "library_ms": library_ms, "dispatch_ms": dispatch_ms})
-    print("k7: 10 probes equal to their plain versions on arange and a "
-          "seeded input; device time per launch (profiler, 50 launches) / "
-          "back-to-back launches (CUDA events, 200) in ms: " + ", ".join(
-              f"{p['name']} {p['ms']:.4f} / {p['dispatch_ms']:.4f}"
-              for p in probes))
+        parts = {"probe": lambda: kernel(arange),
+                 "floor": lambda: exp_mosaic_probe.launch_floor(
+                     arange.device)}
+        if library is not None:
+            parts["library"] = lambda: library(arange)
+        bound = ((K7_READS[name](arange) + got.numel()) * 4
+                 / HBM_BYTES_PER_S * 1e3)
+        entry = k7_turns(name, call, parts, bound)
+        entry.update(
+            name=name, replaces=exp_mosaic_probe.REPLACES[name],
+            max_abs_err=worst, plain_ms=cuda_ms(lambda: plain(arange),
+                                                reps=5),
+            bound_ms=bound)
+        probes.append(entry)
+    bounds = [p["bound_ms"] for p in probes]
+    print(f"k7: 10 probes equal to their plain versions on arange and a "
+          f"seeded input; bounds {min(bounds):.3e}-{max(bounds):.3e} ms by "
+          "bytes (the elements of x each function reads and its output, "
+          "once at 3.35 TB/s), far below any launch: no single launch can "
+          "reach half of one, so the floor is the yardstick")
+    host = k7_host_split(arange)
     slowest = max(probes, key=lambda p: p["ms"])
     row = kernel_row("mosaic_probe", "mosaic_probe.cu", slowest["replaces"],
-                     worst, slowest["ms"], slowest["dispatch_ms"],
+                     max(p["max_abs_err"] for p in probes), slowest["ms"],
+                     slowest["dispatch_ms"],
                      slowest["plain_ms"], slowest["bound_ms"], 0.0,
                      slowest["library_ms"])
-    row["probes"] = probes
+    row.update(floor_ms=slowest["floor_ms"],
+               library_dispatch_ms=slowest["library_dispatch_ms"],
+               probes=probes, host_us=host)
     return row
 
 
-def k7_transpose_turns(kernel, x):
-    """``p6_transpose`` and ``x.t().contiguous()``, device time per launch
-    in K7_TURNS alternating turns of 50 launches; prints both medians and
-    spreads (max - min) and returns the two medians."""
-    turns = {"p6_transpose": [], "x.t().contiguous()": []}
-    for _ in range(K7_TURNS):
-        turns["p6_transpose"].append(device_ms(lambda: kernel(x), reps=50))
-        turns["x.t().contiguous()"].append(
-            device_ms(lambda: x.t().contiguous(), reps=50))
-    med = {k: statistics.median(v) for k, v in turns.items()}
-    print(f"k7 p6_transpose vs x.t().contiguous() ({K7_TURNS} alternating "
-          "turns, device ms per launch): " + "; ".join(
-              f"{k} " + " / ".join(f"{t:.7f}" for t in v)
-              + f" (median {med[k]:.7f}, spread {max(v) - min(v):.7f})"
-              for k, v in turns.items()))
-    return med["p6_transpose"], med["x.t().contiguous()"]
+def k7_window(fns: dict, reps: int, launches: dict, tries: int = 5):
+    """One profiler window (``profiled``, opened with one call of each of
+    ``fns``): ``reps`` calls of each of ``fns`` ({part: fn}, parts "probe",
+    "library", "floor") in the dict's order, the card synchronised after
+    each part's calls. Returns ({part: device ms per call}, {part: kernels
+    per call}, (windows taken, {part: least share of a kernel's records
+    kept})) as ``parts_ms`` reads them, a part's kernels told by name
+    (K7_KERNEL, floor_kernel: the probe's and the floor's; any other is
+    the library's). A window whose kernels per call are not ``launches``
+    ({part: launches per call}), or in which a kernel kept fewer than
+    K7_LEAST_KEPT of its records, is taken again, up to ``tries`` times."""
+    def lead_in():
+        for fn in fns.values():
+            fn()
+
+    def run():
+        for fn in fns.values():
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+
+    def part_of(key):
+        part = ("library" if not K7_KERNEL.search(key)
+                else "floor" if "floor_kernel" in key else "probe")
+        return part if part in fns else None
+
+    for taken in range(1, tries + 1):
+        ms, kernels, kept = parts_ms(profiled(run, lead_in), part_of, reps)
+        if kernels == launches and min(kept.values()) >= K7_LEAST_KEPT:
+            return ms, kernels, (taken, kept)
+    raise RuntimeError(f"the profiler recorded no K7 window with "
+                       f"{launches} kernels per call and at least "
+                       f"{K7_LEAST_KEPT} of each kernel's records in {tries} "
+                       f"tries: the last {kernels}, least share kept {kept}")
+
+
+def k7_turns(name, call, parts: dict, bound_ms: float) -> dict:
+    """``parts`` ({"probe", "floor"[, "library"]: fn}) in K7_TURNS turns,
+    the order reversed every other turn: device time per launch (profiler,
+    K7_REPS each) and back-to-back time (CUDA events, K7_DISPATCH_REPS).
+    Prints the medians and spreads (max - min), the probe's bound by bytes
+    and the targets met or missed; returns the probe's entry of the
+    kernels line."""
+    dev = {k: [] for k in parts}
+    back = {k: [] for k in parts}
+    launches = {"probe": 1, "floor": 1, "library":
+                K7_LIBRARY_LAUNCHES.get(name, 1)}
+    launches = {k: v for k, v in launches.items() if k in parts}
+    windows, kept = 0, dict.fromkeys(parts, 1.0)
+    for turn in range(K7_TURNS):
+        order = list(parts) if turn % 2 == 0 else list(parts)[::-1]
+        ms, kernels, (taken, least) = k7_window(
+            {k: parts[k] for k in order}, K7_REPS, launches)
+        windows += taken
+        kept = {k: min(kept[k], least[k]) for k in parts}
+        for k in order:
+            dev[k].append(ms[k])
+            back[k].append(cuda_ms(parts[k], reps=K7_DISPATCH_REPS,
+                                   warmup=5))
+    med = {k: statistics.median(v) for k, v in dev.items()}
+    spread = {k: max(v) - min(v) for k, v in dev.items()}
+    bmed = {k: statistics.median(v) for k, v in back.items()}
+    gap = statistics.median(p - f for p, f in zip(dev["probe"],
+                                                  dev["floor"]))
+    entry = {"ms": med["probe"], "ms_spread": spread["probe"],
+             "floor_ms": med["floor"], "floor_spread": spread["floor"],
+             "over_floor_ms": gap, "dispatch_ms": bmed["probe"],
+             "floor_dispatch_ms": bmed["floor"], "library": call,
+             "library_ms": None, "library_dispatch_ms": None,
+             "windows": windows, "records_kept": kept}
+    text = (f"k7 {name} ({K7_TURNS} alternating turns; device ms per "
+            f"launch, profiler, {K7_REPS} each / back-to-back ms, CUDA "
+            f"events, {K7_DISPATCH_REPS} each): probe {med['probe']:.7f} "
+            f"(spread {spread['probe']:.7f}) / {bmed['probe']:.5f}; floor "
+            f"{med['floor']:.7f} ({spread['floor']:.7f}) / "
+            f"{bmed['floor']:.5f}; probe - floor {gap:.7f}; bound "
+            f"{bound_ms:.3e} by bytes; profiler windows {windows} for "
+            f"{K7_TURNS} turns, least share of a kernel's records kept: "
+            + ", ".join(f"{k} {v:.2f}" for k, v in kept.items()))
+    targets = [f"(b) within {K7_FLOOR_GAP_MS} ms of the floor: "
+               + ("met" if gap <= K7_FLOOR_GAP_MS else "missed")]
+    if "library" in parts:
+        lib_kernels = kernels["library"]
+        wins = sum(p <= q for p, q in zip(dev["probe"], dev["library"]))
+        text += (f"; {call} {med['library']:.7f} ({spread['library']:.7f})"
+                 f" / {bmed['library']:.5f}, kernels per call "
+                 f"{lib_kernels:g}; probe at or below it in {wins} of "
+                 f"{K7_TURNS} turns")
+        entry.update(library_ms=med["library"],
+                     library_spread=spread["library"],
+                     library_dispatch_ms=bmed["library"],
+                     counterpart_kernels=lib_kernels, turns_won=wins)
+        if lib_kernels != 1:
+            entry["library"] = f"{call}, {lib_kernels:g} launches per call"
+        targets.append(
+            f"(c) back-to-back within {K7_DISPATCH_RATIO:g}x the "
+            "counterpart's: " + ("met" if bmed["probe"]
+                                 <= K7_DISPATCH_RATIO * bmed["library"]
+                                 else "missed"))
+        if name == "p6_transpose":
+            targets.append("(a) at or below it: " + (
+                "met" if med["probe"] <= med["library"] else "missed"))
+    else:
+        text += f"; counterpart {call}"
+    print(text + "; targets " + ", ".join(targets))
+    return entry
+
+
+def k7_host_split(x) -> dict:
+    """K7's wrapper on ``p6_transpose``: its host cost part by part (the
+    checks, ``_build.on_cuda``'s among them, the output allocation, the
+    device and stream lookup, the ctypes call refused before any launch,
+    the ctypes call with the empty floor launch and with the probe's, the
+    same through ``_build.launch``, the whole call), beside one
+    ``x.t().contiguous()`` call. Returns {part: us}."""
+    name = "p6_transpose"
+    number, param, shape = exp_mosaic_probe._SPECS[name][:3]
+    dev = x.device
+    args = exp_mosaic_probe._ARGS
+    fn, _ = _build._entry("mosaic_probe", args)
+    floor_fn = exp_mosaic_probe._floor_entry()
+    stream = _build.current_stream(dev)
+    out = x.new_empty(shape)
+    ptr, optr = x.data_ptr(), out.data_ptr()
+    parts = {
+        "checks": lambda: (
+            x.dtype != torch.float32 or x.shape != exp_mosaic_probe.SHAPE,
+            x.data_ptr() % 16, _build.on_cuda("mosaic_probe", (x,))),
+        "allocation (new_empty)": lambda: x.new_empty(shape),
+        "device and stream": lambda: (
+            dev.index == torch.cuda.current_device(),
+            _build.current_stream(dev)),
+        "ctypes, refused": lambda: fn(-1, 0, ptr, optr, stream),
+        "ctypes, floor launch": lambda: floor_fn(stream),
+        "ctypes, probe launch": lambda: fn(number, param, ptr, optr, stream),
+        "_build.launch, probe": lambda: _build.launch(
+            "mosaic_probe", args, dev, number, param, ptr, optr),
+        "whole call": lambda: exp_mosaic_probe.probe(name, x),
+        "x.t().contiguous()": lambda: x.t().contiguous()}
+    cost = {k: host_us(part) for k, part in parts.items()}
+    print(f"k7 host cost per {name} call (host clock, median of "
+          f"{HOST_ROUNDS} x {HOST_REPS} calls): " + ", ".join(
+              f"{k} {v:.2f} us" for k, v in cost.items()))
+    return cost
 
 
 def phase_tools():

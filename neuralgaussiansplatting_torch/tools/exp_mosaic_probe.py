@@ -5,12 +5,15 @@ lowering idioms the TPU toolchain accepts for the blend kernels. Each probe
 here is one ``__global__`` of ``csrc/mosaic_probe.cu`` computing the same
 function of x (16, 128) float32 as its TPU probe, through the Hopper
 counterpart of the idiom: warp-shuffle lane rotations (static and
-data-dependent amounts), shared-memory transposes, and bulk copies
-(``cp.async.bulk``) into dynamic shared memory completing on an
-``mbarrier``. ``PROBES`` maps each of the JAX tool's ten launch names to
+data-dependent amounts), a shared-memory and a register transpose, and
+bulk copies (``cp.async.bulk``) into dynamic shared memory completing on
+an ``mbarrier``. ``PROBES`` maps each of the JAX tool's ten launch names to
 (kernel wrapper, plain PyTorch version); on a CUDA tensor the wrapper
 launches the probe or raises, on a CPU tensor it runs the plain version.
-``launches`` counts the probe launches.
+``launches`` counts the probe launches. ``launch_floor`` launches the
+library's empty kernel, the floor ``chip_smoke.py`` times the probes
+against, and ``COUNTERPARTS`` names each probe's one-call PyTorch
+counterpart, timed there too.
 
 ``main`` runs every probe on arange(2048).reshape(16, 128), as the JAX tool
 does, and prints ``PASS name: <first 4 values>`` when the probe built,
@@ -116,27 +119,76 @@ REPLACES = {name: spec[4] for name, spec in _SPECS.items()}
 
 def probe(name: str, x: torch.Tensor) -> torch.Tensor:
     """Probe ``name`` on x (16, 128) float32 at a 16-byte aligned address
-    (the bulk-copy probes' source): its kernel on a CUDA tensor, its plain
-    version on a CPU one."""
+    (the bulk copies' source and the float4 loads'): its kernel on a CUDA
+    tensor, its plain version on a CPU one. The output comes from
+    ``new_empty``, cheaper on the host than ``torch.empty``: what a call
+    costs the host is most of what a probe costs."""
     global launches
     number, param, shape, plain, _ = _SPECS[name]
-    if x.dtype != torch.float32 or tuple(x.shape) != SHAPE:
+    if x.dtype != torch.float32 or x.shape != SHAPE:
         raise ValueError(f"x must be {SHAPE} float32, got {tuple(x.shape)} "
                          f"{x.dtype}")
-    if x.data_ptr() % 16:
+    ptr = x.data_ptr()
+    if ptr % 16:
         raise ValueError(f"x must start at a 16-byte aligned address, got "
-                         f"{x.data_ptr():#x}")
+                         f"{ptr:#x}")
     if not _build.on_cuda("mosaic_probe", (x,)):
         return plain(x)
-    out = torch.empty(shape, dtype=torch.float32, device=x.device)
-    _build.launch("mosaic_probe", _ARGS, x.device, number, param,
-                  x.data_ptr(), out.data_ptr())
+    out = x.new_empty(shape)
+    _build.launch("mosaic_probe", _ARGS, x.device, number, param, ptr,
+                  out.data_ptr())
     launches += 1
     return out
 
 
+@functools.cache
+def _floor_entry():
+    fn = _build.load("mosaic_probe").mosaic_probe_floor
+    fn.argtypes = [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def launch_floor(device: torch.device) -> None:
+    """Launch K7's empty kernel (one warp, no work) on ``device``'s current
+    stream: the launch floor that ``chip_smoke.py`` times each probe
+    against. It is not a probe: ``launches`` does not count it, and
+    ``main`` never calls it."""
+    if device.index != torch.cuda.current_device():
+        raise ValueError(f"launch_floor launches on the current device, not "
+                         f"{device}")
+    code = _floor_entry()(_build.current_stream(device))
+    if code:
+        err = _build._entry("mosaic_probe", _ARGS)[1]
+        raise RuntimeError(f"mosaic_probe_floor launch failed: "
+                           f"{err(code).decode()}")
+
+
 PROBES = {name: (functools.partial(probe, name), spec[3])
           for name, spec in _SPECS.items()}
+
+# Each probe's one-call PyTorch counterpart, the yardstick chip_smoke.py
+# times beside it (nothing in the port calls them): name -> (the call, as
+# written, or "none: <why>"; a function of x or None). p2, p4 and p5's sum
+# in another order than the probe's, so they agree with it up to rounding;
+# their (8, 128) broadcasts are views, which launch nothing.
+_P3_CALL = ("x[0, 5].expand(8, 128).clone()",
+            lambda x: x[0, 5].expand(8, 128).clone())
+COUNTERPARTS = {
+    "p1_roll_11_bcast": ("x[0, 3].expand(8, 128).clone()",
+                         lambda x: x[0, 3].expand(8, 128).clone()),
+    "p1b_dynroll": ("none: the lane it reads, int(x[0, 0]) mod 128, is "
+                    "data on the card, which one call cannot index by "
+                    "(a gather needs the index computed first)", None),
+    "p2_twostep": ("x[0, :4].sum().expand(8, 128)",
+                   lambda x: x[0, :4].sum().expand(8, 128)),
+    "p6_transpose": ("x.t().contiguous()", lambda x: x.t().contiguous()),
+    **{f"p3_smem_{kb}kb": _P3_CALL for kb in (2, 4, 8, 16)},
+    "p4_smem_loop": ("x[0].sum().expand(8, 128)",
+                     lambda x: x[0].sum().expand(8, 128)),
+    "p5_smem_2d": ("torch.dot(x[0], x[1]).expand(8, 128)",
+                   lambda x: torch.dot(x[0], x[1]).expand(8, 128)),
+}
 
 
 def run(name: str, x: torch.Tensor) -> bool:

@@ -886,11 +886,14 @@ def test_k6_on_two_streams_on_gpu():
 def test_k7_probes_match_plain_versions_on_gpu():
     """Each K7 probe vs its plain version on the same card, exactly, on the
     tool's arange input and on a seeded input with |x| < 2^20 and a
-    negative x[0, 0]."""
+    negative x[0, 0], on the current stream and on a stream of its own
+    (the launch takes the current stream); the empty floor kernel launches
+    and leaves the probe count as it was."""
     _need_gpu()
     gen = torch.Generator().manual_seed(5)
     rand = (torch.rand((16, 128), generator=gen) * 2 - 1) * 2 ** 20
     rand[0, 0] = -300.75
+    side = torch.cuda.Stream()
     for x in (torch.arange(16 * 128, dtype=torch.float32).reshape(16, 128),
               rand):
         x = x.cuda()
@@ -900,6 +903,17 @@ def test_k7_probes_match_plain_versions_on_gpu():
             torch.cuda.synchronize()
             assert probes.launches == before + 1, name
             assert torch.equal(got, plain(x)), name
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                again = kernel(x)
+            side.synchronize()
+            assert probes.launches == before + 2, name
+            assert torch.equal(again, plain(x)), name
+    before = probes.launches
+    for _ in range(3):
+        probes.launch_floor(x.device)
+    torch.cuda.synchronize()
+    assert probes.launches == before
 
 
 def _demo_model(tmp_path, iterations):

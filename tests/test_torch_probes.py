@@ -6,8 +6,10 @@ CPU: ``main`` runs with ``pl.pallas_call`` set to ``interpret=True`` and its
 ``run`` replaced by a recorder that keeps each probe's function, which is
 then called on the tool's arange input and on two seeded random inputs.
 Every probe output must be equal: the sums are taken in one order on both
-sides. The kernels themselves are held against their plain versions on the
-card in ``tests/test_torch_cuda.py``.
+sides. Each probe's one-call PyTorch counterpart, the yardstick timed
+beside it on the card, is held to its plain version too. The kernels
+themselves are held against their plain versions on the card in
+``tests/test_torch_cuda.py``.
 """
 
 import functools
@@ -111,6 +113,41 @@ def test_plain_probe_matches_numpy_formula(name):
         np.testing.assert_array_equal(got, NUMPY[name](x).astype(np.float32))
 
 
+# The terms each summing probe adds: its counterpart sums them in another
+# order (a tree or a BLAS dot), so the two differ by rounding alone. Each
+# order's error is at most (n - 1) * 2^-24 * sum|terms| (n terms); on these
+# inputs they agree within COUNTERPART_ULPS float32 epsilons (2^-23) of
+# sum|terms|, a few ulps of it. The other counterparts copy: exact.
+SUM_TERMS = {
+    "p2_twostep": lambda x: x[0, :4],
+    "p4_smem_loop": lambda x: x[0],
+    "p5_smem_2d": lambda x: x[0] * x[1],
+}
+COUNTERPART_ULPS = 4
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_counterpart_matches_plain_probe(name):
+    """Each probe's one-call PyTorch counterpart (the yardstick timed beside
+    it on the card) computes its function: exactly where it copies, within
+    a few ulps of sum|terms| where it sums in another order; p1b has none,
+    and says why."""
+    call, fn = tprobe.COUNTERPARTS[name]
+    if fn is None:
+        assert name == "p1b_dynroll" and call.startswith("none: ")
+        return
+    for x in inputs():
+        xt = torch.from_numpy(x)
+        got, want = fn(xt), tprobe.PROBES[name][1](xt)
+        assert got.dtype == torch.float32 and got.shape == want.shape
+        if name in SUM_TERMS:
+            tol = COUNTERPART_ULPS * float(np.finfo(np.float32).eps) \
+                * SUM_TERMS[name](xt).double().abs().sum().item()
+            assert (got.double() - want.double()).abs().max().item() <= tol
+        else:
+            assert torch.equal(got, want)
+
+
 def test_probe_wrapper_on_cpu_runs_plain_version():
     x = torch.from_numpy(inputs()[1])
     before = tprobe.launches
@@ -121,6 +158,12 @@ def test_probe_wrapper_on_cpu_runs_plain_version():
         tprobe.probe("p4_smem_loop", x.double())
     with pytest.raises(ValueError):
         tprobe.probe("p4_smem_loop", x[:8])
+    leaf = x.clone().requires_grad_()
+    with pytest.raises(ValueError, match="require grad"):
+        tprobe.probe("p4_smem_loop", leaf)
+    with torch.no_grad():
+        assert torch.equal(tprobe.probe("p4_smem_loop", leaf),
+                           tprobe.p4_smem_loop_reference(x))
     # a contiguous view 4 bytes into an aligned buffer: a misaligned source
     # for the bulk copies
     flat = torch.zeros(16 * 128 + 1)
