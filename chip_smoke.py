@@ -177,6 +177,7 @@ from neuralgaussiansplatting_torch.train import optim
 from neuralgaussiansplatting_torch.utils import losses
 from neuralgaussiansplatting_torch.utils import lpips
 from neuralgaussiansplatting_torch.utils.timing import (cuda_ms, device_ms,
+                                                        device_records,
                                                         parts_ms,
                                                         profiled)
 from neuralgaussiansplatting_torch.viewer import network_gui
@@ -446,29 +447,24 @@ def card_line() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
-def k1_inputs(params, state, cam, mark=lambda stage: None,
-              settings=SETTINGS):
+def k1_inputs(params, state, cam, settings=SETTINGS):
     """Preprocess -> bin -> pack as ``rasterize`` runs them for one view:
     the inputs the blend kernel of ``settings`` sees on the main path (K1's
-    for the seq settings, K4's for the pallas ones). ``mark(stage)`` is
-    called after each stage."""
+    for the seq settings, K4's for the pallas ones)."""
     tiles_x, tiles_y = settings.tiles_for(cam.width, cam.height)
     pre = pp.preprocess_gaussians(
         params.xyz, gm.get_scaling(params), gm.get_rotation(params),
         gm.get_opacity(params, state.alive), gm.get_features(params),
         SH_DEGREE, cam, settings.block_x, settings.block_y,
         tight=settings.tight_culling)
-    mark("preprocess")
     inst = binning.bin_gaussians(
         pre, tiles_x, tiles_y, settings.capacity, settings.max_per_tile,
         settings.chunk, pack_keys=settings.fast_sort,
         packed_capacity=settings.packed_capacity,
         precise_cull=settings.precise_cull, block_x=settings.block_x,
         block_y=settings.block_y, width=cam.width, height=cam.height)
-    mark("bin")
     packed = blend_pallas.pack_gather(blend_pallas.pack_instance_attrs_t(
         pre.means2d, pre.conic, pre.opacity, pre.rgb), inst.gid)
-    mark("pack")
     return packed, inst, tiles_x
 
 
@@ -1036,30 +1032,6 @@ def phase_train(params, state, rows):
     print(f"train timing: render+loss+backward (bench.py's step) median "
           f"{fb:.3f} ms, {W * H / fb / 1e3:.3f} Mpix/s fwd+bwd")
 
-    # the same steps, with CUDA events between their stages
-    split = {"forward": [], "backward": [], "optimizer": []}
-    host_ms = []
-    for i in range(12):
-        events = []
-
-        def mark(_stage):
-            events.append(torch.cuda.Event(enable_timing=True))
-            events[-1].record()
-
-        t0 = time.perf_counter()
-        mark("start")
-        ts, _ = loop.train_step(ts, cams[i % 4], gts[i % 4], bg, mark=mark,
-                                **kw)
-        torch.cuda.synchronize()
-        host_ms.append((time.perf_counter() - t0) * 1e3)
-        for stage, a, b in zip(split, events, events[1:]):
-            split[stage].append(a.elapsed_time(b))
-    print("train step split (CUDA events, median of 10): " + ", ".join(
-        f"{stage} {statistics.median(v[2:]):.3f} ms"
-        for stage, v in split.items())
-        + f"; the same steps by host clock {statistics.median(host_ms[2:]):.3f}"
-        " ms")
-
     from torch.profiler import ProfilerActivity, profile
     steps = 5
     with profile(activities=[ProfilerActivity.CPU,
@@ -1073,9 +1045,8 @@ def phase_train(params, state, rows):
 
 
 def report_profile(prof, wall_ms, count, unit):
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and e.self_device_time_total > 0]
+    kernels = [e for e in device_records(prof.key_averages())
+               if e.self_device_time_total > 0]
     if not kernels:
         print("profiler: no device time recorded")
         return
@@ -1530,31 +1501,11 @@ def phase_offline(tmp, src, out, run_psnr) -> dict:
 
 
 def phase_breakdown(params, state):
-    """Where a render's time goes: the stages of ``rasterize`` timed apart
-    with CUDA events, then the device's busy share over whole renders and
-    its top kernels from torch.profiler."""
+    """Where a render's time goes: the device's busy share over whole
+    renders and its top kernels from torch.profiler. The trace carries the
+    render's stage spans; ``python -m ngsbench.stages`` charges each kernel
+    to its stage."""
     cam = demo.demo_camera(W, H)
-    stages = ("preprocess", "bin", "pack", "K1")
-    times = {stage: [] for stage in stages}
-    for _ in range(12):
-        events = []
-
-        def mark(_stage):
-            events.append(torch.cuda.Event(enable_timing=True))
-            events[-1].record()
-
-        mark("start")
-        packed, inst, tiles_x = k1_inputs(params, state, cam, mark)
-        blend_seq.blend_seq_fwd(packed, inst.tile_start, inst.tile_count,
-                                tiles_x)
-        mark("K1")
-        torch.cuda.synchronize()
-        for stage, a, b in zip(stages, events, events[1:]):
-            times[stage].append(a.elapsed_time(b))
-    print("stage breakdown (CUDA events, median of 10): " + ", ".join(
-        f"{stage} {statistics.median(v[2:]):.3f} ms"
-        for stage, v in times.items()))
-
     from torch.profiler import ProfilerActivity, profile
     bg = torch.zeros(3, device="cuda")
     renders = 5

@@ -35,6 +35,7 @@ from neuralgaussiansplatting_torch.ops import blend_pallas
 from neuralgaussiansplatting_torch.ops import blend_seq
 from neuralgaussiansplatting_torch.ops import preprocess as pp
 from neuralgaussiansplatting_torch.ops import projection as proj
+from neuralgaussiansplatting_torch.utils import timing
 
 
 @dataclasses.dataclass(frozen=True)
@@ -137,57 +138,61 @@ def rasterize(
     backend = blend_route(settings)
     tiles_x, tiles_y = settings.tiles_for(cam.width, cam.height)
 
-    pre = pp.preprocess_gaussians(
-        means3d, scales, rotations, opacities, shs, sh_degree, cam,
-        settings.block_x, settings.block_y, settings.scale_modifier,
-        cov3d_precomp=cov3d_precomp, colors_precomp=colors_precomp,
-        tight=settings.tight_culling,
-    )
-    if means2d_offset is not None:
-        # scaled column by column with Python scalars: a (2,) tensor made
-        # from host values would be a blocking copy to the device
-        shift = torch.stack([means2d_offset[:, 0] * (cam.width * 0.5),
-                             means2d_offset[:, 1] * (cam.height * 0.5)], -1)
-        pre = pre._replace(means2d=pre.means2d + shift)
+    with timing.span("ngs.preprocess"):
+        pre = pp.preprocess_gaussians(
+            means3d, scales, rotations, opacities, shs, sh_degree, cam,
+            settings.block_x, settings.block_y, settings.scale_modifier,
+            cov3d_precomp=cov3d_precomp, colors_precomp=colors_precomp,
+            tight=settings.tight_culling,
+        )
+        if means2d_offset is not None:
+            # scaled column by column with Python scalars: a (2,) tensor
+            # made from host values would be a blocking copy to the device
+            shift = torch.stack([means2d_offset[:, 0] * (cam.width * 0.5),
+                                 means2d_offset[:, 1] * (cam.height * 0.5)],
+                                -1)
+            pre = pre._replace(means2d=pre.means2d + shift)
 
-    inst = binning.bin_gaussians(
-        pre, tiles_x, tiles_y, settings.capacity, settings.max_per_tile,
-        settings.chunk, pack_keys=settings.fast_sort,
-        packed_capacity=settings.packed_capacity,
-        precise_cull=settings.precise_cull,
-        block_x=settings.block_x, block_y=settings.block_y,
-        width=cam.width, height=cam.height,
-        # "auto" is the run-length scatter expansion at every size, as in
-        # the JAX package
-        expand="scatter" if settings.expand == "auto" else settings.expand,
-        dense_cap=settings.dense_cap)
-
-    blend_args = (inst, pre.means2d, pre.conic, pre.opacity, pre.rgb,
-                  tiles_x, tiles_y, settings.block_x, settings.block_y,
-                  settings.max_per_tile, settings.chunk)
-    if backend == "seq":
-        res = blend_seq.blend_tiles_seq(
-            *blend_args, track_contrib=settings.track_contrib)
-    elif backend == "pallas":
-        res = blend_pallas.blend_tiles(
-            *blend_args, track_contrib=settings.track_contrib)
-    else:
-        res = blend_plain.blend_tiles(*blend_args)
+    with timing.span("ngs.binning"):
+        inst = binning.bin_gaussians(
+            pre, tiles_x, tiles_y, settings.capacity, settings.max_per_tile,
+            settings.chunk, pack_keys=settings.fast_sort,
+            packed_capacity=settings.packed_capacity,
+            precise_cull=settings.precise_cull,
+            block_x=settings.block_x, block_y=settings.block_y,
+            width=cam.width, height=cam.height,
+            # "auto" is the run-length scatter expansion at every size, as
+            # in the JAX package
+            expand="scatter" if settings.expand == "auto" else settings.expand,
+            dense_cap=settings.dense_cap)
 
     def assemble(per_tile):
         return blend_plain.assemble_image(
             per_tile, tiles_x, tiles_y, settings.block_x, settings.block_y,
             cam.width, cam.height)
 
-    color = res.color + res.final_t[..., None] * bg[None, None, :]
-    return RenderOutput(
-        color=assemble(color).permute(2, 0, 1),
-        final_t=assemble(res.final_t),
-        n_contrib=assemble(res.n_contrib),
-        radii=pre.radii,
-        num_rendered=inst.num_rendered,
-        max_per_tile=inst.max_tile_load,
-        aligned_demand=inst.aligned_demand,
-        dropped=inst.dropped,
-        culled=inst.culled,
-    )
+    with timing.span("ngs.blend"):
+        blend_args = (inst, pre.means2d, pre.conic, pre.opacity, pre.rgb,
+                      tiles_x, tiles_y, settings.block_x, settings.block_y,
+                      settings.max_per_tile, settings.chunk)
+        if backend == "seq":
+            res = blend_seq.blend_tiles_seq(
+                *blend_args, track_contrib=settings.track_contrib)
+        elif backend == "pallas":
+            res = blend_pallas.blend_tiles(
+                *blend_args, track_contrib=settings.track_contrib)
+        else:
+            res = blend_plain.blend_tiles(*blend_args)
+
+        color = res.color + res.final_t[..., None] * bg[None, None, :]
+        return RenderOutput(
+            color=assemble(color).permute(2, 0, 1),
+            final_t=assemble(res.final_t),
+            n_contrib=assemble(res.n_contrib),
+            radii=pre.radii,
+            num_rendered=inst.num_rendered,
+            max_per_tile=inst.max_tile_load,
+            aligned_demand=inst.aligned_demand,
+            dropped=inst.dropped,
+            culled=inst.culled,
+        )

@@ -36,7 +36,7 @@ from neuralgaussiansplatting_torch.models import gaussians as gm
 from neuralgaussiansplatting_torch.ops import rasterize as rast
 from neuralgaussiansplatting_torch.train import densify as dens
 from neuralgaussiansplatting_torch.train import optim
-from neuralgaussiansplatting_torch.utils import losses
+from neuralgaussiansplatting_torch.utils import losses, timing
 
 # the leaves the step differentiates: every one the optimizer updates
 # (``normals`` are frozen)
@@ -79,14 +79,14 @@ def tune_capacity(settings: rast.RasterizeSettings, num_rendered: int,
 
 def train_step(ts: TrainState, cam, gt: torch.Tensor, bg: torch.Tensor, *,
                tx: optim.Adam, sh_degree: int,
-               settings: rast.RasterizeSettings, lambda_dssim: float,
-               mark=lambda stage: None):
+               settings: rast.RasterizeSettings, lambda_dssim: float):
     """One render + loss + gradient + Adam + statistics step.
 
     Returns (new TrainState, metrics); the metrics are tensors on the
-    device (nothing is read back to the host here). ``mark(stage)`` is
-    called after each stage: "forward" (render + loss), "backward",
-    "optimizer" (dead-slot select, Adam, statistics).
+    device (nothing is read back to the host here). Under a profiler the
+    stages are the spans "ngs.render" (and its parts), "ngs.loss",
+    "ngs.backward" and "ngs.optimizer" (dead-slot select, Adam,
+    statistics).
     """
     params = ts.params
     n = params.xyz.shape[0]
@@ -97,27 +97,28 @@ def train_step(ts: TrainState, cam, gt: torch.Tensor, bg: torch.Tensor, *,
 
     out = render(cam, diff_params, ts.gstate.alive, sh_degree, bg, settings,
                  means2d_offset=offset)
-    loss = losses.photometric_loss(out["render"], gt, lambda_dssim)
-    mark("forward")
+    with timing.span("ngs.loss"):
+        loss = losses.photometric_loss(out["render"], gt, lambda_dssim)
     inputs = list(leaves.values()) + [offset]
-    grads = torch.autograd.grad(loss, inputs, allow_unused=True)
-    mark("backward")
-    grads = [torch.zeros_like(x) if g is None else g
-             for x, g in zip(inputs, grads)]
-    goff = grads.pop()
+    with timing.span("ngs.backward"):
+        grads = torch.autograd.grad(loss, inputs, allow_unused=True)
+    with timing.span("ngs.optimizer"):
+        grads = [torch.zeros_like(x) if g is None else g
+                 for x, g in zip(inputs, grads)]
+        goff = grads.pop()
 
-    # Dead (padding) slots carry no loss signal but can produce NaN
-    # gradients through their degenerate parameters: a select (not a
-    # multiply) clears them, so Adam never moves a slot until densification
-    # writes it.
-    alive = ts.gstate.alive
-    grads = {f: torch.where(alive.reshape((n,) + (1,) * (g.ndim - 1)), g, 0.0)
-             for f, g in zip(leaves, grads)}
-    grads = params._replace(**grads)
+        # Dead (padding) slots carry no loss signal but can produce NaN
+        # gradients through their degenerate parameters: a select (not a
+        # multiply) clears them, so Adam never moves a slot until
+        # densification writes it.
+        alive = ts.gstate.alive
+        grads = {f: torch.where(alive.reshape((n,) + (1,) * (g.ndim - 1)),
+                                g, 0.0)
+                 for f, g in zip(leaves, grads)}
+        grads = params._replace(**grads)
 
-    new_params, opt_state = tx.update(grads, ts.opt_state, params)
-    gstate = dens.add_densification_stats(ts.gstate, out["radii"], goff)
-    mark("optimizer")
+        new_params, opt_state = tx.update(grads, ts.opt_state, params)
+        gstate = dens.add_densification_stats(ts.gstate, out["radii"], goff)
     image = out["render"].detach()
     metrics = {
         "loss": loss.detach(),
@@ -232,8 +233,9 @@ class Trainer:
         """One iteration: ``grad_step`` then ``apply_schedule``. Callers that
         evaluate at milestones call those two with the evaluation between
         them, as the reference evaluates before density control."""
-        metrics = self.grad_step(cam, gt_image, iteration)
-        return self.apply_schedule(iteration, metrics)
+        with timing.span("ngs.step", iteration):
+            metrics = self.grad_step(cam, gt_image, iteration)
+            return self.apply_schedule(iteration, metrics)
 
     def grad_step(self, cam, gt_image, iteration: int):
         """SH warm-up, then one ``train_step``."""

@@ -1,7 +1,8 @@
 """``utils.timing.kernel_ms``, the device time per call that
 ``chip_smoke.py`` reads from a profiler window, on recorded windows made up
 here: the profiler may drop chunks of a kernel's records, and the time per
-call must not read low for that."""
+call must not read low for that; a host range that the trace mirrors on
+the device's timeline is no kernel."""
 
 import types
 
@@ -16,7 +17,8 @@ CPU = torch.autograd.DeviceType.CPU
 
 def event(key, count, us_each, device=CUDA):
     return types.SimpleNamespace(key=key, count=count, device_type=device,
-                                 self_device_time_total=count * us_each)
+                                 self_device_time_total=count * us_each,
+                                 is_user_annotation=False)
 
 
 @pytest.mark.parametrize("kept", [50, 49, 28, 1])
@@ -35,6 +37,20 @@ def test_a_kernel_launched_twice_a_call_counts_twice(kept):
 
 def test_an_empty_window_reads_nothing():
     assert timing.kernel_ms([event("aten::empty", 50, 0.0, CPU)], 50) == {}
+
+
+@pytest.mark.parametrize("mirror", ["ngs.render", "train_loop"])
+def test_a_host_range_mirrored_on_the_device_is_no_kernel(mirror):
+    # the trace repeats each host range on the device's timeline, its
+    # whole elapsed time as its own device time
+    kernel = event("blend", 50, 10.0)
+    window = [kernel, types.SimpleNamespace(
+        key=mirror, count=50, device_type=CUDA, is_user_annotation=True,
+        self_device_time_total=50 * 900.0)]
+    assert timing.device_records(window) == [kernel]
+    assert timing.kernel_ms(window, 50) == {"blend": pytest.approx(0.01)}
+    assert timing.kernel_records(window, 50) == {"blend": (50, 50)}
+    assert timing.short_records(window[1:], 100) == {}
 
 
 @pytest.mark.parametrize("kept, short", [

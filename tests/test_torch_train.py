@@ -78,23 +78,47 @@ def test_dead_slot_gradients_are_cleared_by_a_select():
         assert torch.equal(a[CAP - 1].nan_to_num(), b[CAP - 1].nan_to_num())
 
 
-def test_train_step_marks_its_stages_without_changing_the_step():
+def test_train_step_marks_its_stages_without_changing_the_step(
+        monkeypatch):
+    """With no profiler recording, the step's spans enter no
+    ``record_function`` and the step is bit-equal to one traced on the
+    CPU profiler, which records each stage's span once."""
     params, state, cam, gt, bg = _step_inputs()
     tp, ts = tgm.params_from_numpy(jgm.GaussianParams(*map(np.asarray, params)),
                                    jgm.GaussianState(*map(np.asarray, state)),
                                    device="cpu")
     ttx = toptim.make_optimizer(OPT, SPATIAL)
-    stages = []
-    outs = [tloop.train_step(
-        tloop.TrainState(tp, ts, ttx.init(tp), 0), port_camera(cam),
-        to_torch(gt), to_torch(bg), tx=ttx, sh_degree=3,
-        settings=trast.make_settings("seq", **FLAGS), lambda_dssim=0.2,
-        **kw) for kw in ({}, {"mark": stages.append})]
-    assert stages == ["forward", "backward", "optimizer"]
-    (a, ma), (b, mb) = outs
-    assert torch.equal(ma["loss"], mb["loss"])
+    entered = []
+    real = torch.autograd.profiler.record_function
+
+    def counted(name, args=None):
+        entered.append(name)
+        return real(name, args)
+
+    monkeypatch.setattr(torch.autograd.profiler, "record_function", counted)
+
+    def step():
+        return tloop.train_step(
+            tloop.TrainState(tp, ts, ttx.init(tp), 0), port_camera(cam),
+            to_torch(gt), to_torch(bg), tx=ttx, sh_degree=3,
+            settings=trast.make_settings("seq", **FLAGS), lambda_dssim=0.2)
+
+    a, ma = step()
+    assert entered == []
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        b, mb = step()
+    stages = ["ngs.render", "ngs.preprocess", "ngs.binning", "ngs.blend",
+              "ngs.loss", "ngs.backward", "ngs.optimizer"]
+    assert entered == stages
+    assert [e.name for e in prof.events() if e.name in stages] == stages
+    for k in ma:
+        assert torch.equal(ma[k], mb[k]), k
     for x, y in zip(a.params + a.gstate, b.params + b.gstate):
         assert torch.equal(x, y)
+    for name, g in a.opt_state.items():
+        assert torch.equal(g.mu, b.opt_state[name].mu), name
+        assert torch.equal(g.nu, b.opt_state[name].nu), name
 
 
 def test_repad_and_normalize_params():
