@@ -5,8 +5,14 @@
 Builds every CUDA kernel of the port from csrc/ (K1, the 32x32 tile blend;
 K2, its backward; K3, the neural path's z-buffer; K4, the blend at any tile
 shape, 16x16 on the pallas path; K5, its backward; K6, the run-length
-decode; K7, the idiom probes), holds each against its plain PyTorch version
-at the shapes of its workload, then drives the paths as a user would.
+decode; K7, the idiom probes; and the port's own preprocess pair, forward
+and backward), holds each against its plain PyTorch version at the shapes
+of its workload, then drives the paths as a user would.
+
+Preprocess (first): both kernels against the plain version and its
+float64 run at the benchmark's garden size (5M Gaussians, 1297x840, SH 3)
+and at 800x800/100k, each timed per call beside the plain version and its
+bytes bound; every later phase goes through them.
 
 Classic path (800x800, 100k Gaussians, SH degree 3, the bench rasterizer
 settings): a demo cloud saved to PLY, loaded back and rendered from four
@@ -181,6 +187,12 @@ from neuralgaussiansplatting_torch.utils.timing import (cuda_ms, device_ms,
                                                         parts_ms,
                                                         profiled)
 from neuralgaussiansplatting_torch.viewer import network_gui
+
+# the preprocess kernels' edge rows and tolerance gate, shared with their
+# card tests (tests/preprocess_cases.py imports no JAX)
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "tests"))
+import preprocess_cases as cases  # noqa: E402
 
 W = H = 800
 N = 100_000
@@ -502,7 +514,8 @@ def phase_build():
     t0 = time.perf_counter()
     logs = _build.build(["blend_seq_fwd", "blend_seq_bwd", "blend_seq_stage",
                          "zbuffer_fwd", "blend_pallas_fwd",
-                         "blend_pallas_bwd", "decode_runs", "mosaic_probe"])
+                         "blend_pallas_bwd", "decode_runs", "mosaic_probe",
+                         "preprocess_fwd", "preprocess_bwd"])
     print(f"build: {time.perf_counter() - t0:.1f} s "
           f"({', '.join(logs) or 'cached'})")
     for name, log in logs.items():
@@ -523,6 +536,220 @@ def kernel_row(name, source, replaces, err, ms, dispatch_ms, plain_ms,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": library_ms, "dispatch_ms": dispatch_ms}
+
+
+# The preprocess kernels' workloads: (Gaussians, width, height). "garden" is
+# the benchmark's garden840 cells (5M Gaussians at 1297x840, SH 3), its
+# cloud drawn on the card from a seed in front of the demo camera; "800p" is
+# the classic path's demo cloud, its quaternions and a per-axis stretch of
+# its scales drawn from a seed.
+PRE_WORKLOADS = {"garden": (5_000_000, 1297, 840), "800p": (N, W, H)}
+
+
+def preprocess_bytes(n: int, deg: int, offset: bool) -> tuple[int, int]:
+    """(forward, backward) bytes of the preprocess pass as the function
+    needs them, each input read once and each output written once. Forward:
+    xyz 3, scale 3, rotation 4, opacity 1, SH 3 (deg + 1)^2 (and the offset
+    2) read; means2d 2, depth 1, radius 1, conic 3, rgb 3, the rects 4,
+    tiles 1 written. Backward: the same inputs but the opacity, and the
+    gradients of means2d 2, conic 3, rgb 3, read; the gradients of xyz,
+    scale, rotation, SH (and offset) written."""
+    k = 3 * (deg + 1) ** 2
+    off = 2 if offset else 0
+    fwd = (3 + 3 + 4 + 1 + k + off) + (2 + 1 + 1 + 3 + 3 + 4 + 1)
+    bwd = (3 + 3 + 4 + k + 2 + 3 + 3) + (3 + 3 + 4 + k + off)
+    return 4 * n * fwd, 4 * n * bwd
+
+
+def garden_preprocess_inputs(n: int, w: int, h: int, seed: int = 3):
+    """``n`` Gaussians drawn on the card from ``seed``: means in the cube the
+    demo scene fills, log-normal scales, random quaternions and opacities,
+    SH degree 3 rows, a zero offset; and the demo camera at ``w`` x ``h``."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dev = dict(device="cuda", generator=g)
+    inputs = {
+        "means3d": (torch.rand((n, 3), **dev) * 2.4 - 1.2),
+        "scales": torch.exp(torch.randn((n, 3), **dev) * 0.6 - 4.6),
+        "rotations": torch.randn((n, 4), **dev),
+        "opacities": torch.sigmoid(torch.randn((n,), **dev)),
+        "shs": torch.randn((n, 16, 3), **dev) * 0.3,
+        "offset": torch.zeros((n, 2), device="cuda")}
+    return inputs, demo.demo_camera(w, h)
+
+
+def phase_preprocess(params, state) -> dict:
+    """The preprocess kernels against the plain version at the two
+    workloads, each with ``preprocess_cases``' edge rows appended, with the
+    benchmark's settings (32x32 tiles, tight rects, the offset), under the
+    card tests' gate (``preprocess_cases.assert_held``): forward floats to
+    each row's scale, backward leaves to the largest |gradient| of their
+    group's band (``magnitude_bands``: the largest 0.1 % of the bulk's rows
+    apart, as the garden cloud holds Gaussians near the camera's plane),
+    each as close to the float64 plain version as the float32 one is, or
+    within 1e-5; at garden size the depths bit for bit;
+    integer outputs equal but on at most 1e-5 of the rows; two backward
+    launches bit-equal; then per call, the kernels' device time (profiler)
+    and back-to-back time (CUDA events), the plain version's, and the bytes
+    bound. Returns the kernels line's two rows, the garden workload's
+    numbers, both workloads' under "workloads"."""
+    per = {"preprocess_fwd": [], "preprocess_bwd": []}
+    for name, (n, w, h) in PRE_WORKLOADS.items():
+        if name == "800p":
+            # the demo cloud's quaternions are all identity and its scales
+            # isotropic, which leaves no rotation gradient: random ones, and
+            # scales stretched per axis
+            gen = torch.Generator(device="cuda").manual_seed(4)
+            stretch = torch.exp(0.5 * torch.randn((n, 3), device="cuda",
+                                                  generator=gen))
+            inputs = {"means3d": params.xyz,
+                      "scales": gm.get_scaling(params) * stretch,
+                      "rotations": torch.randn((n, 4), device="cuda",
+                                               generator=gen),
+                      "opacities": gm.get_opacity(params, state.alive),
+                      "shs": gm.get_features(params),
+                      "offset": torch.zeros((n, 2), device="cuda")}
+            cam = demo.demo_camera(w, h)
+        else:
+            inputs, cam = garden_preprocess_inputs(n, w, h)
+        inputs, groups = cases.append_edges(
+            {k: v.detach().contiguous() for k, v in inputs.items()}, cam)
+        rows_n = len(groups)
+        leaves = ("means3d", "scales", "rotations", "shs", "offset")
+
+        def make(grad, dtype=torch.float32):
+            ins = {k: v.detach().to(dtype, copy=True) for k, v in
+                   inputs.items()}
+            for k in leaves if grad else ():
+                ins[k].requires_grad_()
+            c = cam
+            if dtype != torch.float32:
+                c = copy.copy(cam)
+                for k in ("view", "full_proj", "campos"):
+                    setattr(c, k, getattr(cam, k).to(dtype))
+            return ins, c
+
+        def call(fn, made):
+            ins, c = made
+            pre = fn(ins["means3d"], ins["scales"], ins["rotations"],
+                     ins["opacities"], ins["shs"], SH_DEGREE, c, 32, 32,
+                     tight=True, means2d_offset=ins["offset"])
+            return pre, [ins[k] for k in leaves]
+
+        def held(label, *args):
+            try:
+                return cases.assert_held(label, *args)
+            except AssertionError as e:
+                fail(f"preprocess {label} ({name}): further from the "
+                     f"float64 plain version than the float32 one, in rows "
+                     f"{e}")
+
+        plain_in, ref_in = make(False), make(False, torch.float64)
+        with torch.no_grad():
+            got, _ = call(pp.preprocess_gaussians, plain_in)
+            want, _ = call(pp.preprocess_gaussians_reference, plain_in)
+            ref, _ = call(pp.preprocess_gaussians_reference, ref_in)
+        del ref_in
+        torch.cuda.synchronize()
+        same_depths = torch.equal(got.depths, want.depths)
+        print(f"preprocess forward ({name}): depths bit-equal to the plain "
+              f"version's: {same_depths}")
+        check(same_depths or name != "garden",
+              f"preprocess forward ({name}): the depths are not the plain "
+              "version's bits; binning sorts by them, so two overlapping "
+              "Gaussians an ulp apart blend in the other order (the "
+              "benchmark's render compared with its reference turns "
+              "incorrect): the kernels' view transform (affine_row) no "
+              "longer sums as cuBLAS does at this size")
+        err = 0.0
+        for field in ("means2d", "depths", "conic", "rgb"):
+            r = getattr(ref, field)
+            err = max(err, held(f"forward {field}", getattr(got, field),
+                                getattr(want, field), r, groups,
+                                cases.row_scale(field, r, cam)))
+        differ = torch.zeros(rows_n, dtype=torch.bool, device="cuda")
+        for field in ("radii", "rect_min", "rect_max", "tiles_touched"):
+            differ |= (getattr(got, field) != getattr(want, field)).reshape(
+                rows_n, -1).any(dim=1)
+        check(int(differ.sum()) <= 1e-5 * rows_n,
+              f"preprocess forward ({name}): {int(differ.sum())} rows differ "
+              "in an integer output")
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        live = (want.radii > 0)[:, None]
+        cot = [torch.where(live, torch.randn((rows_n, c), device="cuda",
+                                             generator=gen) * s, 0.0)
+               for c, s in ((2, 1e-2), (3, 1e-1), (3, 1.0))]
+        pre_k, leaves_k = call(pp.preprocess_gaussians, make(True))
+        pre_p, leaves_p = call(pp.preprocess_gaussians_reference, make(True))
+        pre_r, leaves_r = call(pp.preprocess_gaussians_reference,
+                               make(True, torch.float64))
+        outs_k = [pre_k.means2d, pre_k.conic, pre_k.rgb]
+        outs_p = [pre_p.means2d, pre_p.conic, pre_p.rgb]
+        gk = torch.autograd.grad(outs_k, leaves_k, cot, retain_graph=True)
+        again = torch.autograd.grad(outs_k, leaves_k, cot, retain_graph=True)
+        gp = torch.autograd.grad(outs_p, leaves_p, cot, retain_graph=True)
+        gr = torch.autograd.grad([pre_r.means2d, pre_r.conic, pre_r.rgb],
+                                 leaves_r, [c.double() for c in cot])
+        del pre_r, leaves_r
+        gerr = 0.0
+        for leaf, a, b, c, r in zip(leaves, gk, again, gp, gr):
+            check(torch.equal(a, b), f"two preprocess backward launches "
+                  f"differ ({name}, {leaf})")
+            gerr = max(gerr, held(f"backward {leaf}", a, c, r,
+                                  cases.magnitude_bands(groups, r)))
+        del gr, ref
+
+        def fwd_kernel():
+            with torch.no_grad():
+                call(pp.preprocess_gaussians, plain_in)
+
+        def fwd_plain():
+            with torch.no_grad():
+                call(pp.preprocess_gaussians_reference, plain_in)
+
+        def bwd_kernel():
+            torch.autograd.grad(outs_k, leaves_k, cot, retain_graph=True)
+
+        def bwd_plain():
+            torch.autograd.grad(outs_p, leaves_p, cot, retain_graph=True)
+
+        b_fwd, b_bwd = preprocess_bytes(rows_n, SH_DEGREE, True)
+        for kernel, fn, plain, nbytes, e in (
+                ("preprocess_fwd", fwd_kernel, fwd_plain, b_fwd, err),
+                ("preprocess_bwd", bwd_kernel, bwd_plain, b_bwd, gerr)):
+            ms = device_ms(fn, reps=20)
+            dispatch_ms = cuda_ms(fn, reps=20, warmup=2)
+            plain_ms = cuda_ms(plain, reps=3)
+            bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            print(f"{kernel} {name}: {rows_n} Gaussians at {w}x{h}, SH "
+                  f"{SH_DEGREE}, tight, offset: device time per call "
+                  f"(profiler, 20 calls) {ms:.4f} ms, back-to-back calls "
+                  f"(CUDA events) {dispatch_ms:.4f} ms, plain version "
+                  f"{plain_ms:.4f} ms; bound {bound_ms:.4f} ms by bytes "
+                  f"({nbytes} B), {100 * bound_ms / ms:.1f} % of it; "
+                  f"largest error from the float64 plain version {e:.3e} "
+                  "of its scale (each row's, or its band's largest)")
+            per[kernel].append({
+                "workload": name, "gaussians": rows_n, "width": w,
+                "height": h,
+                "ms": ms, "dispatch_ms": dispatch_ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "max_rel_err": e})
+        del got, want, pre_k, pre_p, outs_k, outs_p, gk, again, gp, inputs
+        del plain_in
+        torch.cuda.empty_cache()
+    rows = {}
+    for kernel, source in (("preprocess_fwd", "preprocess_fwd.cu"),
+                           ("preprocess_bwd", "preprocess_bwd.cu")):
+        g = per[kernel][0]
+        row = kernel_row(kernel, source, "none: the JAX package leaves "
+                         "preprocess to XLA", None, g["ms"],
+                         g["dispatch_ms"], g["plain_ms"], g["bound_ms"], 0.0)
+        # the error is relative: to each row's scale, or to its band's
+        # largest |gradient|
+        del row["max_abs_err"]
+        row["max_rel_err"] = g["max_rel_err"]
+        row["workloads"] = per[kernel]
+        rows[kernel] = row
+    return rows
 
 
 def pair_ops(kernel, blend_ops, tile, association):
@@ -880,8 +1107,9 @@ def phase_small_reference():
           f"(JAX gate)")
 
 
-def phase_serve(params, state):
-    """PLY save -> load, then render four views through the public API."""
+def phase_serve(params, state, rows):
+    """PLY save -> load, then render four views through the public API:
+    one K1 and one preprocess forward launch a view, no backward."""
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "point_cloud.ply")
         gm.save_ply(path, params, state.alive)
@@ -894,14 +1122,20 @@ def phase_serve(params, state):
 
     torch.cuda.synchronize()
     blend_seq.launches = blend_seq.bwd_launches = 0
+    pp.launches = pp.bwd_launches = 0
     outs = [render(cam, loaded, lstate.alive, deg, bg, SETTINGS)
             for cam in cams]
     torch.cuda.synchronize()
-    launches = blend_seq.launches
+    launches, pre = blend_seq.launches, pp.launches
     check(launches == len(VIEWS),
           f"K1 launched {launches} times for {len(VIEWS)} renders")
     check(blend_seq.bwd_launches == 0, "a forward render launched K2")
-    print(f"serve: K1 launched {launches} times for {len(VIEWS)} renders")
+    check(pre == len(VIEWS) and pp.bwd_launches == 0,
+          f"{len(VIEWS)} renders launched the preprocess forward {pre} and "
+          f"its backward {pp.bwd_launches} times")
+    rows["preprocess_fwd"]["serve_launches"] = pre
+    print(f"serve: K1 launched {launches} times and the preprocess forward "
+          f"{pre} times for {len(VIEWS)} renders")
     for angle, out in zip(VIEWS, outs):
         img = out["render"]
         check(img.shape == (3, H, W), f"image shape {tuple(img.shape)}")
@@ -981,6 +1215,7 @@ def phase_train(params, state, rows):
 
     torch.cuda.synchronize()
     blend_seq.launches = blend_seq.bwd_launches = 0
+    pp.launches = pp.bwd_launches = 0
     step_ms, metrics = [], []
     for i in range(TRAIN_STEPS):
         t0 = time.perf_counter()
@@ -991,7 +1226,13 @@ def phase_train(params, state, rows):
     k1, k2 = blend_seq.launches, blend_seq.bwd_launches
     check(k1 == TRAIN_STEPS and k2 == TRAIN_STEPS,
           f"{TRAIN_STEPS} steps launched K1 {k1} and K2 {k2} times")
+    pre, pre_bwd = pp.launches, pp.bwd_launches
+    check(pre == TRAIN_STEPS and pre_bwd == TRAIN_STEPS,
+          f"{TRAIN_STEPS} steps launched the preprocess forward {pre} and "
+          f"its backward {pre_bwd} times")
     rows["K1"]["launches"], rows["K2"]["launches"] = k1, k2
+    rows["preprocess_fwd"]["launches"] = pre
+    rows["preprocess_bwd"]["launches"] = pre_bwd
     loss = [m["loss"].item() for m in metrics]
     check(all(math.isfinite(x) for x in loss), f"loss not finite: {loss}")
     check(all(int(m["dropped"]) == 0 for m in metrics), "instances dropped")
@@ -1004,7 +1245,8 @@ def phase_train(params, state, rows):
     first, last = statistics.mean(loss[:5]), statistics.mean(loss[-5:])
     check(last < first, f"loss did not fall: first 5 {first}, last 5 {last}")
     step = statistics.median(step_ms[2:])
-    print(f"train: K1 {k1} and K2 {k2} launches in {TRAIN_STEPS} steps; loss "
+    print(f"train: K1 {k1}, K2 {k2}, preprocess forward {pre} and backward "
+          f"{pre_bwd} launches in {TRAIN_STEPS} steps; loss "
           f"{loss[0]:.5f} -> {loss[-1]:.5f} (mean of first 5 {first:.5f}, "
           f"last 5 {last:.5f}); psnr {metrics[0]['psnr'].item():.3f} -> "
           f"{metrics[-1]['psnr'].item():.3f}; num_rendered "
@@ -3522,10 +3764,11 @@ def main():
 
     phase_build()
     params, state, _ = demo.demo_scene(n=N, w=W, h=H, sh_degree=SH_DEGREE)
-    rows = {"K1": phase_k1_parity(params, state),
-            "K2": phase_k2_parity(params, state)}
+    rows = phase_preprocess(params, state)
+    rows.update(K1=phase_k1_parity(params, state),
+                K2=phase_k2_parity(params, state))
     phase_small_reference()
-    loaded, lstate = phase_serve(params, state)
+    loaded, lstate = phase_serve(params, state, rows)
     phase_breakdown(loaded, lstate)
     phase_train(loaded, lstate, rows)
     phase_trainer()

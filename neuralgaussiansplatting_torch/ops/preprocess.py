@@ -1,12 +1,21 @@
 """Per-Gaussian screen-space preprocessing (project, EWA, SH->RGB, culling).
 
-Port of ``ops/preprocess.py``: dense (N, ...) tensor arithmetic in the same
-operation order. Culled Gaussians are not compacted; they carry
-``radii == 0`` and ``tiles_touched == 0`` and binning skips them.
+Port of ``ops/preprocess.py``. Culled Gaussians are not compacted; they
+carry ``radii == 0`` and ``tiles_touched == 0`` and binning skips them.
+
+``preprocess_gaussians`` is the public pass, differentiable through
+``torch.autograd``. On CUDA tensors without precomputed covariances or
+colours its forward is one kernel (``csrc/preprocess_fwd.cu``) and its
+backward one kernel (``csrc/preprocess_bwd.cu``); ``launches`` and
+``bwd_launches`` count them. On the CPU, and with either precomputed input,
+it runs ``preprocess_gaussians_reference``, the plain version: dense
+(N, ...) tensor arithmetic in the JAX package's operation order, which the
+kernels repeat.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 from typing import NamedTuple
 
@@ -14,9 +23,23 @@ import numpy as np
 import torch
 
 from neuralgaussiansplatting_torch import resolve_device
+from neuralgaussiansplatting_torch.ops import _build
 from neuralgaussiansplatting_torch.ops import projection as proj
 from neuralgaussiansplatting_torch.ops import sh as sh_ops
 from neuralgaussiansplatting_torch.ops import transforms
+
+launches = 0      # forward kernel launches since the caller last set it to 0
+bwd_launches = 0  # backward kernel launches since the caller last set it to 0
+
+_P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                   ctypes.c_float)
+# the C signatures of csrc/preprocess_{fwd,bwd}.cu (the last pointer is the
+# stream)
+_FWD_ARGS = (_P, _P, _P, _P, _P, _LL, _I, _P, _P, _P, _P, _LL, _F, _F, _F, _F,
+             _I, _I, _I, _I, _I, _I, _F, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+             _P)
+_BWD_ARGS = (_P, _P, _P, _P, _LL, _I, _P, _P, _P, _LL, _F, _F, _F, _F, _I, _I,
+             _F, _P, _P, _P, _P, _P, _P, _P, _P, _P)
 
 
 @dataclasses.dataclass(eq=False)
@@ -139,7 +162,7 @@ class Preprocessed(NamedTuple):
     tiles_touched: torch.Tensor  # (N,) int32
 
 
-def preprocess_gaussians(
+def preprocess_gaussians_reference(
     means3d: torch.Tensor,
     scales: torch.Tensor,
     rotations: torch.Tensor,
@@ -153,11 +176,10 @@ def preprocess_gaussians(
     cov3d_precomp: torch.Tensor | None = None,
     colors_precomp: torch.Tensor | None = None,
     tight: bool = False,
+    means2d_offset: torch.Tensor | None = None,
 ) -> Preprocessed:
-    """Preprocess N Gaussians for one camera.
-
-    ``scales``/``opacities`` are already activated (exp / sigmoid).
-    """
+    """Plain PyTorch version of ``preprocess_gaussians``, on any device:
+    the tensor code the kernels repeat, differentiated by autograd."""
     n = means3d.shape[0]
     tiles_x = (cam.width + block_x - 1) // block_x
     tiles_y = (cam.height + block_y - 1) // block_y
@@ -242,6 +264,12 @@ def preprocess_gaussians(
         rgb = sh_ops.sh_to_rgb_color(sh_degree, shs, means3d, cam.campos)
     if rgb.shape != (n, 3):
         raise ValueError(f"colors must be ({n}, 3), got {tuple(rgb.shape)}")
+    if means2d_offset is not None:
+        # scaled column by column with Python scalars: a (2,) tensor made
+        # from host values would be a blocking copy to the device
+        shift = torch.stack([means2d_offset[:, 0] * (cam.width * 0.5),
+                             means2d_offset[:, 1] * (cam.height * 0.5)], -1)
+        means2d = means2d + shift
     return Preprocessed(
         means2d=means2d,
         depths=depths,
@@ -253,3 +281,178 @@ def preprocess_gaussians(
         rect_max=rect_max,
         tiles_touched=tiles,
     )
+
+
+def _camera_tensor(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    if t.device != device:
+        raise ValueError(f"camera tensors must be on {device}, got {t.device}")
+    return t.detach().contiguous()
+
+
+def _floats(t: torch.Tensor, name: str, shape: tuple) -> torch.Tensor:
+    """``t`` as a contiguous float32 tensor of ``shape``, 16-byte aligned
+    for the kernels' float4 and float2 accesses (a view at an odd offset is
+    copied)."""
+    if t.dtype != torch.float32 or tuple(t.shape) != shape:
+        raise ValueError(f"{name} must be {shape} float32, got "
+                         f"{tuple(t.shape)} {t.dtype}")
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+class _Preprocess(torch.autograd.Function):
+    """The forward kernel and the backward kernel: means2d, conic and rgb
+    differentiable in the means, scales, rotations, SH rows and offset; the
+    depths, radii, rects and tile counts carry no gradient. Saves only its
+    inputs: the backward recomputes the forward."""
+
+    @staticmethod
+    def forward(ctx, means3d, scales, rotations, opacities, shs, offset,
+                view, full_proj, campos, meta):
+        global launches
+        (sh_degree, focal_x, focal_y, limit_x, limit_y, width, height,
+         tiles_x, tiles_y, block_x, block_y, scale_modifier, tight) = meta
+        n = means3d.shape[0]
+        dev = means3d.device
+        f32 = dict(dtype=torch.float32, device=dev)
+        i32 = dict(dtype=torch.int32, device=dev)
+        means2d = torch.empty((n, 2), **f32)
+        depths = torch.empty((n,), **f32)
+        radii = torch.empty((n,), **i32)
+        conic = torch.empty((n, 3), **f32)
+        rgb = torch.empty((n, 3), **f32)
+        rect_min = torch.empty((n, 2), **i32)
+        rect_max = torch.empty((n, 2), **i32)
+        tiles = torch.empty((n,), **i32)
+        _build.launch(
+            "preprocess_fwd", _FWD_ARGS, dev, means3d.data_ptr(),
+            scales.data_ptr(), rotations.data_ptr(), opacities.data_ptr(),
+            shs.data_ptr(), shs.shape[1], sh_degree, view.data_ptr(),
+            full_proj.data_ptr(), campos.data_ptr(),
+            None if offset is None else offset.data_ptr(), n, focal_x,
+            focal_y, limit_x, limit_y, width, height, tiles_x, tiles_y,
+            block_x, block_y, scale_modifier, int(tight), means2d.data_ptr(),
+            depths.data_ptr(), radii.data_ptr(), conic.data_ptr(),
+            rgb.data_ptr(), rect_min.data_ptr(), rect_max.data_ptr(),
+            tiles.data_ptr())
+        launches += 1
+        ctx.save_for_backward(means3d, scales, rotations, shs, view,
+                              full_proj, campos)
+        ctx.meta = meta
+        ctx.has_offset = offset is not None
+        ctx.mark_non_differentiable(depths, radii, rect_min, rect_max, tiles)
+        ctx.set_materialize_grads(False)
+        return means2d, depths, radii, conic, rgb, rect_min, rect_max, tiles
+
+    @staticmethod
+    def backward(ctx, g_means2d, _depths, _radii, g_conic, g_rgb, *_ints):
+        global bwd_launches
+        means3d, scales, rotations, shs, view, full_proj, campos = \
+            ctx.saved_tensors
+        sh_degree, focal_x, focal_y, limit_x, limit_y, width, height = \
+            ctx.meta[:7]
+        scale_modifier = ctx.meta[11]
+        n = means3d.shape[0]
+
+        def upstream(g, cols):
+            if g is None:
+                return means3d.new_zeros((n, cols))
+            return _floats(g, "the upstream gradient", (n, cols))
+
+        g_means2d, g_conic, g_rgb = (upstream(g_means2d, 2),
+                                     upstream(g_conic, 3),
+                                     upstream(g_rgb, 3))
+        g_means = torch.empty_like(means3d)
+        g_scales = torch.empty_like(scales)
+        g_rots = torch.empty_like(rotations)
+        g_shs = torch.empty_like(shs)
+        g_offset = (means3d.new_empty((n, 2)) if ctx.has_offset else None)
+        _build.launch(
+            "preprocess_bwd", _BWD_ARGS, means3d.device, means3d.data_ptr(),
+            scales.data_ptr(), rotations.data_ptr(), shs.data_ptr(),
+            shs.shape[1], sh_degree, view.data_ptr(), full_proj.data_ptr(),
+            campos.data_ptr(), n, focal_x, focal_y, limit_x, limit_y, width,
+            height, scale_modifier, g_means2d.data_ptr(), g_conic.data_ptr(),
+            g_rgb.data_ptr(), g_means.data_ptr(), g_scales.data_ptr(),
+            g_rots.data_ptr(), g_shs.data_ptr(),
+            None if g_offset is None else g_offset.data_ptr())
+        bwd_launches += 1
+        return (g_means, g_scales, g_rots, None, g_shs, g_offset, None, None,
+                None, None)
+
+
+def takes_kernels(means3d: torch.Tensor,
+                  cov3d_precomp: torch.Tensor | None = None,
+                  colors_precomp: torch.Tensor | None = None) -> bool:
+    """Whether ``preprocess_gaussians`` runs the kernels for these inputs:
+    CUDA tensors and neither precomputed input."""
+    return (means3d.device.type == "cuda" and cov3d_precomp is None
+            and colors_precomp is None)
+
+
+def preprocess_gaussians(
+    means3d: torch.Tensor,
+    scales: torch.Tensor,
+    rotations: torch.Tensor,
+    opacities: torch.Tensor,
+    shs: torch.Tensor,
+    sh_degree: int,
+    cam: CameraParams,
+    block_x: int,
+    block_y: int,
+    scale_modifier: float = 1.0,
+    cov3d_precomp: torch.Tensor | None = None,
+    colors_precomp: torch.Tensor | None = None,
+    tight: bool = False,
+    means2d_offset: torch.Tensor | None = None,
+) -> Preprocessed:
+    """Preprocess N Gaussians for one camera.
+
+    ``scales``/``opacities`` are already activated (exp / sigmoid); ``shs``
+    is (N, K, 3) or flat (N, 3K), of which the first (sh_degree + 1)^2
+    coefficients are read. ``means2d_offset`` (N, 2) shifts the projected
+    centres by offset * (W/2, H/2) pixels after the tile rects are taken
+    (the reference's screen-space densification statistic is its
+    gradient). The kernels run where ``takes_kernels`` says, the plain
+    version elsewhere; both give the same fields, the opacity being the
+    input tensor itself.
+    """
+    if not takes_kernels(means3d, cov3d_precomp, colors_precomp):
+        return preprocess_gaussians_reference(
+            means3d, scales, rotations, opacities, shs, sh_degree, cam,
+            block_x, block_y, scale_modifier, cov3d_precomp=cov3d_precomp,
+            colors_precomp=colors_precomp, tight=tight,
+            means2d_offset=means2d_offset)
+    if not 0 <= sh_degree <= 3:
+        raise ValueError(f"SH degree must be in 0..3, got {sh_degree}")
+    n = means3d.shape[0]
+    dev = means3d.device
+    flat = shs.reshape(n, -1) if shs.dim() == 3 else shs
+    if (flat.dim() != 2 or flat.shape[1] % 3
+            or flat.shape[1] < 3 * (sh_degree + 1) ** 2):
+        raise ValueError(f"shs must hold (N, K, 3) coefficients with K >= "
+                         f"{(sh_degree + 1) ** 2}, got {tuple(shs.shape)}")
+    args = [_floats(means3d, "means3d", (n, 3)),
+            _floats(scales, "scales", (n, 3)),
+            _floats(rotations, "rotations", (n, 4)),
+            _floats(opacities, "opacities", (n,)),
+            _floats(flat, "shs", tuple(flat.shape)),
+            None if means2d_offset is None
+            else _floats(means2d_offset, "means2d_offset", (n, 2))]
+    if any(a is not None and a.device != dev for a in args):
+        raise ValueError("the inputs must be on one device")
+    tiles_x = (cam.width + block_x - 1) // block_x
+    tiles_y = (cam.height + block_y - 1) // block_y
+    meta = (sh_degree, cam.width / (2.0 * cam.tan_fovx),
+            cam.height / (2.0 * cam.tan_fovy), cam.limit_x, cam.limit_y,
+            cam.width, cam.height, tiles_x, tiles_y, block_x, block_y,
+            float(scale_modifier), bool(tight))
+    (means2d, depths, radii, conic, rgb, rect_min, rect_max,
+     tiles) = _Preprocess.apply(
+        *args, _camera_tensor(cam.view, dev),
+        _camera_tensor(cam.full_proj, dev), _camera_tensor(cam.campos, dev),
+        meta)
+    return Preprocessed(means2d=means2d, depths=depths, radii=radii,
+                        conic=conic, opacity=opacities, rgb=rgb,
+                        rect_min=rect_min, rect_max=rect_max,
+                        tiles_touched=tiles)

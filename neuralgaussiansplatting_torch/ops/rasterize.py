@@ -14,7 +14,10 @@ Backends:
   differentiated by autograd.
 
 The route depends on the settings alone; ``blend_seq.launches`` and
-``blend_pallas.launches`` show which kernel ran.
+``blend_pallas.launches`` show which kernel ran. The preprocess before the
+blend runs its own kernels on every backend (``preprocess.launches``,
+``preprocess.bwd_launches``), except with precomputed covariances or
+colours.
 
 ``means2d_offset`` shifts the projected centres by offset * (W/2, H/2)
 pixels, the reference's screen-space densification convention: its
@@ -143,15 +146,8 @@ def rasterize(
             means3d, scales, rotations, opacities, shs, sh_degree, cam,
             settings.block_x, settings.block_y, settings.scale_modifier,
             cov3d_precomp=cov3d_precomp, colors_precomp=colors_precomp,
-            tight=settings.tight_culling,
+            tight=settings.tight_culling, means2d_offset=means2d_offset,
         )
-        if means2d_offset is not None:
-            # scaled column by column with Python scalars: a (2,) tensor
-            # made from host values would be a blocking copy to the device
-            shift = torch.stack([means2d_offset[:, 0] * (cam.width * 0.5),
-                                 means2d_offset[:, 1] * (cam.height * 0.5)],
-                                -1)
-            pre = pre._replace(means2d=pre.means2d + shift)
 
     with timing.span("ngs.binning"):
         inst = binning.bin_gaussians(
