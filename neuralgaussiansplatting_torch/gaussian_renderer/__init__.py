@@ -3,7 +3,9 @@
 ``render`` is the classic 3DGS render, differentiable through K1/K2.
 ``render1``/``render2``/``render3`` are the fork's neural-feature paths: the
 per-pixel z-buffer and feature map (``ops/idxmap.py``, kernel K3), then the
-screen-space decoders of ``models/nets.py``.
+screen-space decoders of ``models/nets.py``. Under a profiler each opens the
+span "ngs.render" and inside it "ngs.zbuffer", "ngs.decoders" and (render2
+and render3) "ngs.denoise".
 """
 
 from __future__ import annotations
@@ -133,31 +135,44 @@ def render1(cam: CameraParams, params: gm.GaussianParams, net_params: dict,
     """idxmap -> per-pixel MLP (the reference's render1). ``net_params``
     holds the decoders (``init_decoders``); ``capacity`` counts the
     z-buffer's tile instances; ``dtype`` is the decoders' compute type."""
-    maps = idxmap_ops.render_idxmaps(params.xyz, params.features, cam,
-                                     capacity, alive)
-    return _neural_outputs(params, maps,
-                           net_params["mlp"](maps.featuremap, dtype))
+    with timing.span("ngs.render"):
+        with timing.span("ngs.zbuffer"):
+            maps = idxmap_ops.render_idxmaps(params.xyz, params.features,
+                                             cam, capacity, alive)
+        with timing.span("ngs.decoders"):
+            final = net_params["mlp"](maps.featuremap, dtype)
+        return _neural_outputs(params, maps, final)
 
 
 def render2(cam: CameraParams, params: gm.GaussianParams, net_params: dict,
             capacity: int = 1 << 21, dtype=torch.float32, alive=None):
     """idxmap -> UNet RGB and CNN 9x9 kernels -> denoiser (the reference's
     render2); the UNet's RGB is returned as "aggregation" (H, W, 3)."""
-    maps = idxmap_ops.render_idxmaps(params.xyz, params.features, cam,
-                                     capacity, alive)
-    kernels = net_params["cnn"](maps.featuremap, dtype)
-    unet_out = net_params["unet"](maps.featuremap, dtype)
-    return _neural_outputs(params, maps, nets.denoise(unet_out, kernels),
-                           aggregation=unet_out, denoiser=kernels)
+    with timing.span("ngs.render"):
+        with timing.span("ngs.zbuffer"):
+            maps = idxmap_ops.render_idxmaps(params.xyz, params.features,
+                                             cam, capacity, alive)
+        with timing.span("ngs.decoders"):
+            kernels = net_params["cnn"](maps.featuremap, dtype)
+            unet_out = net_params["unet"](maps.featuremap, dtype)
+        with timing.span("ngs.denoise"):
+            final = nets.denoise(unet_out, kernels)
+        return _neural_outputs(params, maps, final, aggregation=unet_out,
+                               denoiser=kernels)
 
 
 def render3(cam: CameraParams, params: gm.GaussianParams, net_params: dict,
             capacity: int = 1 << 21, dtype=torch.float32, alive=None):
     """idxmap -> MLP aggregation and CNN kernels -> denoiser (the
     reference's render3)."""
-    maps = idxmap_ops.render_idxmaps(params.xyz, params.features, cam,
-                                     capacity, alive)
-    aggregation = net_params["mlp"](maps.featuremap, dtype)
-    kernels = net_params["cnn"](maps.featuremap, dtype)
-    return _neural_outputs(params, maps, nets.denoise(aggregation, kernels),
-                           aggregation=aggregation, denoiser=kernels)
+    with timing.span("ngs.render"):
+        with timing.span("ngs.zbuffer"):
+            maps = idxmap_ops.render_idxmaps(params.xyz, params.features,
+                                             cam, capacity, alive)
+        with timing.span("ngs.decoders"):
+            aggregation = net_params["mlp"](maps.featuremap, dtype)
+            kernels = net_params["cnn"](maps.featuremap, dtype)
+        with timing.span("ngs.denoise"):
+            final = nets.denoise(aggregation, kernels)
+        return _neural_outputs(params, maps, final, aggregation=aggregation,
+                               denoiser=kernels)

@@ -7,6 +7,10 @@ Geometry is frozen, as the z-buffer returns no geometry gradient: only the
 screen-space decoders train, all by Adam (eps 1e-15) at ``feature_lr``.
 Densification is off, as in the reference.
 
+Under a profiler the step opens the spans "ngs.step" (``NeuralTrainer.step``),
+the render's (``gaussian_renderer.render1/2/3``), "ngs.loss", "ngs.backward"
+and "ngs.optimizer" (``neural_train_step``).
+
 The step's only kernel is K3, in the z-buffer; it has no backward. The
 features' gradient comes from the winner-row gather's exact per-Gaussian
 sum, the decoders' from their convolutions' own backward.
@@ -32,7 +36,7 @@ import torch
 from neuralgaussiansplatting_torch import gaussian_renderer as gr
 from neuralgaussiansplatting_torch.models import gaussians as gm
 from neuralgaussiansplatting_torch.train import optim
-from neuralgaussiansplatting_torch.utils import losses
+from neuralgaussiansplatting_torch.utils import losses, timing
 
 
 class NeuralTrainState(NamedTuple):
@@ -89,20 +93,23 @@ def neural_train_step(ts: NeuralTrainState, cam, gt: torch.Tensor, *,
         out = RENDER_FNS[sw](cam, ts.params._replace(features=features),
                              ts.net_params, capacity, dtype=dtype,
                              alive=ts.alive)
-        loss = losses.photometric_loss(out["render"], gt, lambda_dssim)
-        grads = torch.autograd.grad(loss, inputs, allow_unused=True)
-    grads = [torch.zeros_like(x) if g is None else g
-             for x, g in zip(inputs, grads)]
+        with timing.span("ngs.loss"):
+            loss = losses.photometric_loss(out["render"], gt, lambda_dssim)
+        with timing.span("ngs.backward"):
+            grads = torch.autograd.grad(loss, inputs, allow_unused=True)
 
     g_state, n_state = ts.opt_state
     with torch.no_grad():
-        params, g_state = gaussian_tx.update({"features": grads[0]}, g_state,
-                                             ts.params)
-        new_leaves, n_state = net_tx.update(
-            dict(zip(leaves, grads[1:])), n_state,
-            {name: p.detach() for name, p in leaves.items()})
-        for name, p in leaves.items():
-            p.copy_(new_leaves[name])
+        with timing.span("ngs.optimizer"):
+            grads = [torch.zeros_like(x) if g is None else g
+                     for x, g in zip(inputs, grads)]
+            params, g_state = gaussian_tx.update({"features": grads[0]},
+                                                 g_state, ts.params)
+            new_leaves, n_state = net_tx.update(
+                dict(zip(leaves, grads[1:])), n_state,
+                {name: p.detach() for name, p in leaves.items()})
+            for name, p in leaves.items():
+                p.copy_(new_leaves[name])
         image = out["render"].detach()
         metrics = {
             "loss": loss.detach(),
@@ -138,20 +145,21 @@ class NeuralTrainer:
             step=0, alive=gaussians.state.alive)
 
     def step(self, cam, gt_image):
-        self.ts, metrics = neural_train_step(
-            self.ts, cam, gt_image, sw=self.sw, capacity=self.capacity,
-            txs=self.txs, lambda_dssim=self.opt.lambda_dssim,
-            dtype=self.dtype)
-        # read the demand back (a wait on the device) only on the cadence;
-        # the 1.4x headroom covers growth between checks
-        if self.ts.step % 100 == 0:
-            demand = int(metrics["idx_demand"])
-            want = 1 << max(int(demand * 1.4) - 1, 1).bit_length()
-            want = min(max(want, 1 << 16), 1 << 24)
-            if want > self.capacity or want < self.capacity // 4:
-                self.capacity = want
-                metrics["retuned_idx_capacity"] = want
-        return metrics
+        with timing.span("ngs.step", self.ts.step + 1):
+            self.ts, metrics = neural_train_step(
+                self.ts, cam, gt_image, sw=self.sw, capacity=self.capacity,
+                txs=self.txs, lambda_dssim=self.opt.lambda_dssim,
+                dtype=self.dtype)
+            # read the demand back (a wait on the device) only on the
+            # cadence; the 1.4x headroom covers growth between checks
+            if self.ts.step % 100 == 0:
+                demand = int(metrics["idx_demand"])
+                want = 1 << max(int(demand * 1.4) - 1, 1).bit_length()
+                want = min(max(want, 1 << 16), 1 << 24)
+                if want > self.capacity or want < self.capacity // 4:
+                    self.capacity = want
+                    metrics["retuned_idx_capacity"] = want
+            return metrics
 
     def sync_model(self):
         """Reflect the training state back into the GaussianModel."""
