@@ -12,7 +12,9 @@ of its workload, then drives the paths as a user would.
 Preprocess (first): both kernels against the plain version and its
 float64 run at the benchmark's garden size (5M Gaussians, 1297x840, SH 3)
 and at 800x800/100k, each timed per call beside the plain version and its
-bytes bound; every later phase goes through them.
+bytes bound; every later phase goes through them. Then Adam: the kernel
+over garden's seven groups (615M floats) bit-equal to the plain version,
+timed beside it and its bytes bound.
 
 Classic path (800x800, 100k Gaussians, SH degree 3, the bench rasterizer
 settings): a demo cloud saved to PLY, loaded back and rendered from four
@@ -515,7 +517,8 @@ def phase_build():
     logs = _build.build(["blend_seq_fwd", "blend_seq_bwd", "blend_seq_stage",
                          "zbuffer_fwd", "blend_pallas_fwd",
                          "blend_pallas_bwd", "decode_runs", "mosaic_probe",
-                         "preprocess_fwd", "preprocess_bwd"])
+                         "preprocess_fwd", "preprocess_bwd",
+                         "adam_update"])
     print(f"build: {time.perf_counter() - t0:.1f} s "
           f"({', '.join(logs) or 'cached'})")
     for name, log in logs.items():
@@ -750,6 +753,85 @@ def phase_preprocess(params, state) -> dict:
         row["workloads"] = per[kernel]
         rows[kernel] = row
     return rows
+
+
+# garden840.train's trainable groups: 5M rows of xyz 3, features_dc 1x3,
+# features_rest 15x3, features 64 (which the classic render does not read:
+# no gradient), scaling 3, rotation 4 and opacity 1 floats; 615M in all
+ADAM_ROWS = 5_000_000
+ADAM_SHAPES = {"xyz": (3,), "features_dc": (1, 3), "features_rest": (15, 3),
+               "features": (64,), "scaling": (3,), "rotation": (4,),
+               "opacity": (1,)}
+
+
+def adam_bytes(shapes: dict, no_grad) -> int:
+    """Bytes of one Adam step as the function needs them: p, g, mu and nu
+    read and p', mu' and nu' written once, 28 B an element; 24 for a group
+    without a gradient."""
+    return sum((24 if name in no_grad else 28) * math.prod(shape)
+               for name, shape in shapes.items())
+
+
+def phase_adam() -> dict:
+    """The Adam kernel at garden840.train's groups, with dead slots (5 % of
+    the rows, their gradients NaN) and ``features`` without a gradient:
+    two steps bit-equal to the plain version (parameters and both moments),
+    one launch each; then per step the kernel's device time (profiler, 20
+    calls) and back-to-back time (CUDA events), the plain version's, and
+    the bytes bound. Returns the kernels line's row."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    tx = optim.make_optimizer(optim.OptimizationParams(), 1.0)
+    shapes = {k: (ADAM_ROWS,) + s for k, s in ADAM_SHAPES.items()}
+    params = {k: torch.randn(s, device="cuda", generator=gen)
+              for k, s in shapes.items()}
+    alive = torch.rand(ADAM_ROWS, device="cuda", generator=gen) > 0.05
+    grads = {k: torch.where(alive.reshape((-1,) + (1,) * (len(s) - 1)),
+                            torch.randn(s, device="cuda", generator=gen)
+                            * 1e-3, float("nan"))
+             for k, s in shapes.items() if k != "features"}
+    grads["features"] = None
+    state = tx.init(params)
+    optim.launches = 0
+    for step in range(2):
+        got = tx.update(grads, state, params, alive=alive)
+        want = tx.update_reference(grads, state, params, alive=alive)
+        for name in shapes:
+            check(torch.equal(got[0][name], want[0][name])
+                  and torch.equal(got[1][name].mu, want[1][name].mu)
+                  and torch.equal(got[1][name].nu, want[1][name].nu),
+                  f"adam step {step + 1}: {name} is not the plain "
+                  "version's bits")
+        params, state = got
+        del want, got
+    check(optim.launches == 2,
+          f"2 Adam steps launched the kernel {optim.launches} times")
+
+    def kernel():
+        tx.update(grads, state, params, alive=alive)
+
+    def plain():
+        tx.update_reference(grads, state, params, alive=alive)
+
+    ms = device_ms(kernel, reps=20)
+    dispatch_ms = cuda_ms(kernel, reps=20, warmup=2)
+    plain_ms = cuda_ms(plain, reps=3)
+    nbytes = adam_bytes(shapes, ("features",))
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    floats = sum(math.prod(s) for s in shapes.values())
+    print(f"adam_update garden: {len(shapes)} groups, {floats} floats "
+          f"({ADAM_ROWS} rows, 5 % dead, features without a gradient), "
+          f"bit-equal to the plain version over 2 steps, 1 launch a step; "
+          f"device time per step (profiler, 20 calls) {ms:.4f} ms, "
+          f"back-to-back steps (CUDA events) {dispatch_ms:.4f} ms, plain "
+          f"version {plain_ms:.4f} ms; bound {bound_ms:.4f} ms by bytes "
+          f"({nbytes} B), {100 * bound_ms / ms:.1f} % of it")
+    row = kernel_row("adam_update", "adam_update.cu", "none: the JAX "
+                     "package leaves Adam to XLA (optax)", 0.0, ms,
+                     dispatch_ms, plain_ms, bound_ms, 0.0)
+    row["floats"] = floats
+    del params, state, grads
+    torch.cuda.empty_cache()
+    return row
 
 
 def pair_ops(kernel, blend_ops, tile, association):
@@ -1215,7 +1297,7 @@ def phase_train(params, state, rows):
 
     torch.cuda.synchronize()
     blend_seq.launches = blend_seq.bwd_launches = 0
-    pp.launches = pp.bwd_launches = 0
+    pp.launches = pp.bwd_launches = optim.launches = 0
     step_ms, metrics = [], []
     for i in range(TRAIN_STEPS):
         t0 = time.perf_counter()
@@ -1233,6 +1315,10 @@ def phase_train(params, state, rows):
     rows["K1"]["launches"], rows["K2"]["launches"] = k1, k2
     rows["preprocess_fwd"]["launches"] = pre
     rows["preprocess_bwd"]["launches"] = pre_bwd
+    adam = optim.launches
+    check(adam == TRAIN_STEPS,
+          f"{TRAIN_STEPS} steps launched the Adam kernel {adam} times")
+    rows["adam_update"]["launches"] = adam
     loss = [m["loss"].item() for m in metrics]
     check(all(math.isfinite(x) for x in loss), f"loss not finite: {loss}")
     check(all(int(m["dropped"]) == 0 for m in metrics), "instances dropped")
@@ -1246,7 +1332,7 @@ def phase_train(params, state, rows):
     check(last < first, f"loss did not fall: first 5 {first}, last 5 {last}")
     step = statistics.median(step_ms[2:])
     print(f"train: K1 {k1}, K2 {k2}, preprocess forward {pre} and backward "
-          f"{pre_bwd} launches in {TRAIN_STEPS} steps; loss "
+          f"{pre_bwd}, Adam {adam} launches in {TRAIN_STEPS} steps; loss "
           f"{loss[0]:.5f} -> {loss[-1]:.5f} (mean of first 5 {first:.5f}, "
           f"last 5 {last:.5f}); psnr {metrics[0]['psnr'].item():.3f} -> "
           f"{metrics[-1]['psnr'].item():.3f}; num_rendered "
@@ -2377,7 +2463,7 @@ def phase_neural_train(params, state):
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    zbuffer_pallas.launches = 0
+    zbuffer_pallas.launches = optim.launches = 0
     step_ms, metrics = [], []
     for _ in range(NEURAL_STEPS):
         t0 = time.perf_counter()
@@ -2387,6 +2473,13 @@ def phase_neural_train(params, state):
     launches = zbuffer_pallas.launches
     check(launches == NEURAL_STEPS,
           f"{NEURAL_STEPS} steps launched K3 {launches} times")
+    # the features in one launch, the decoders' leaves in MAX_GROUPS a
+    # launch
+    n_leaves = len(neural_loop.decoder_leaves(trainer.ts.net_params))
+    adam = 1 + -(-n_leaves // optim.MAX_GROUPS)
+    check(optim.launches == adam * NEURAL_STEPS,
+          f"{NEURAL_STEPS} steps launched the Adam kernel {optim.launches} "
+          f"times, not {adam} a step ({n_leaves} decoder leaves)")
     loss = [m["loss"].item() for m in metrics]
     check(all(math.isfinite(x) for x in loss), f"loss not finite: {loss}")
     check(torch.isfinite(trainer.ts.params.features).all().item(),
@@ -2402,8 +2495,8 @@ def phase_neural_train(params, state):
           f"last 3 {last}")
     step = statistics.median(step_ms[2:])
     peak = torch.cuda.max_memory_allocated() / 2**30
-    print(f"neural train: NeuralTrainer(sw=2), K3 {launches} launches in "
-          f"{NEURAL_STEPS} steps; loss {loss[0]:.5f} -> {loss[-1]:.5f} (mean "
+    print(f"neural train: NeuralTrainer(sw=2), K3 {launches} and Adam "
+          f"{optim.launches} launches in {NEURAL_STEPS} steps; loss {loss[0]:.5f} -> {loss[-1]:.5f} (mean "
           f"of first 3 {first:.5f}, last 3 {last:.5f}); psnr "
           f"{metrics[0]['psnr'].item():.3f} -> "
           f"{metrics[-1]['psnr'].item():.3f}; hit rate "
@@ -3765,6 +3858,7 @@ def main():
     phase_build()
     params, state, _ = demo.demo_scene(n=N, w=W, h=H, sh_degree=SH_DEGREE)
     rows = phase_preprocess(params, state)
+    rows["adam_update"] = phase_adam()
     rows.update(K1=phase_k1_parity(params, state),
                 K2=phase_k2_parity(params, state))
     phase_small_reference()

@@ -103,16 +103,19 @@ def make_dp_train_step(mesh: mesh_lib.Mesh, tx: optim.Adam, *,
         inputs = list(leaves.values()) + [offsets]
         grads = torch.autograd.grad(loss_sum / batch, inputs,
                                     allow_unused=True)
-        grads = [torch.zeros_like(x) if g is None else g
-                 for x, g in zip(inputs, grads)]
-        goff = grads.pop()
+        goff = grads[-1]
+        if goff is None:
+            goff = torch.zeros_like(offsets)
+        # a leaf the render does not read (``features``) has no gradient on
+        # any rank: nothing to reduce, and Adam reads zeros
+        grads = {f: g for f, g in zip(leaves, grads[:-1]) if g is not None}
 
         # the per-camera statistics, summed over this rank's cameras
         radii = torch.stack(radii)                       # (b, N)
         visible = radii > 0
         gnorm = torch.linalg.vector_norm(goff[..., :2], dim=-1) * batch
         sums = torch.cat(
-            [g.reshape(-1) for g in grads]
+            [g.reshape(-1) for g in grads.values()]
             + [torch.where(visible, gnorm, 0.0).sum(dim=0),
                visible.sum(dim=0).float(),
                torch.stack([loss_sum.detach(), psnr_sum])])
@@ -122,15 +125,14 @@ def make_dp_train_step(mesh: mesh_lib.Mesh, tx: optim.Adam, *,
         _reduce(mesh, sums, dist.ReduceOp.SUM)
         _reduce(mesh, maxima, dist.ReduceOp.MAX)
 
-        parts = list(torch.split(sums, [g.numel() for g in grads]
+        parts = list(torch.split(sums, [g.numel() for g in grads.values()]
                                  + [n, n, 2]))
         loss, psnr = parts.pop() / batch
         denom, accum = parts.pop(), parts.pop()
-        grads = {f: torch.where(
-            alive.reshape((n,) + (1,) * (g.ndim - 1)), p.view_as(g), 0.0)
-            for f, g, p in zip(leaves, grads, parts)}
-        new_params, opt_state = tx.update(params._replace(**grads),
-                                          ts.opt_state, params)
+        grads = {f: p.view_as(g) for (f, g), p in zip(grads.items(), parts)}
+        grads = params._replace(**{f: grads.get(f) for f in leaves})
+        new_params, opt_state = tx.update(grads, ts.opt_state, params,
+                                          alive=alive)
         gstate = ts.gstate._replace(
             max_radii2d=torch.maximum(ts.gstate.max_radii2d,
                                       maxima[:n].float()),

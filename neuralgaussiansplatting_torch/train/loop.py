@@ -85,7 +85,7 @@ def train_step(ts: TrainState, cam, gt: torch.Tensor, bg: torch.Tensor, *,
     Returns (new TrainState, metrics); the metrics are tensors on the
     device (nothing is read back to the host here). Under a profiler the
     stages are the spans "ngs.render" (and its parts), "ngs.loss",
-    "ngs.backward" and "ngs.optimizer" (dead-slot select, Adam,
+    "ngs.backward" and "ngs.optimizer" (Adam with the dead-slot select,
     statistics).
     """
     params = ts.params
@@ -103,21 +103,17 @@ def train_step(ts: TrainState, cam, gt: torch.Tensor, bg: torch.Tensor, *,
     with timing.span("ngs.backward"):
         grads = torch.autograd.grad(loss, inputs, allow_unused=True)
     with timing.span("ngs.optimizer"):
-        grads = [torch.zeros_like(x) if g is None else g
-                 for x, g in zip(inputs, grads)]
-        goff = grads.pop()
-
+        goff = grads[-1]
+        if goff is None:
+            goff = torch.zeros_like(offset)
+        grads = params._replace(**dict(zip(leaves, grads[:-1])))
         # Dead (padding) slots carry no loss signal but can produce NaN
-        # gradients through their degenerate parameters: a select (not a
-        # multiply) clears them, so Adam never moves a slot until
-        # densification writes it.
-        alive = ts.gstate.alive
-        grads = {f: torch.where(alive.reshape((n,) + (1,) * (g.ndim - 1)),
-                                g, 0.0)
-                 for f, g in zip(leaves, grads)}
-        grads = params._replace(**grads)
-
-        new_params, opt_state = tx.update(grads, ts.opt_state, params)
+        # gradients through their degenerate parameters: Adam selects (not
+        # multiplies) them away, so it never moves a slot's parameters by
+        # its gradient until densification writes it. A leaf the render
+        # does not read (``features``) has no gradient: Adam reads zeros.
+        new_params, opt_state = tx.update(grads, ts.opt_state, params,
+                                          alive=ts.gstate.alive)
         gstate = dens.add_densification_stats(ts.gstate, out["radii"], goff)
     image = out["render"].detach()
     metrics = {

@@ -101,8 +101,6 @@ def neural_train_step(ts: NeuralTrainState, cam, gt: torch.Tensor, *,
     g_state, n_state = ts.opt_state
     with torch.no_grad():
         with timing.span("ngs.optimizer"):
-            grads = [torch.zeros_like(x) if g is None else g
-                     for x, g in zip(inputs, grads)]
             params, g_state = gaussian_tx.update({"features": grads[0]},
                                                  g_state, ts.params)
             new_leaves, n_state = net_tx.update(

@@ -17,16 +17,33 @@ One update follows ``optax.scale_by_adam`` then ``scale_by_learning_rate``:
 
 The learning rate and the bias corrections are float32 values computed on
 the host from the step count, which the state keeps as a Python int.
+
+``Adam.update`` takes an optional per-row ``alive`` mask: the gradients of
+dead (padding) rows are read as 0, as ``torch.where`` selects them. On CUDA
+tensors every group of a call is updated by one kernel launch
+(``csrc/adam_update.cu``; ``launches`` counts them), bit-equal to
+``Adam.update_reference``, the plain version, which runs on the CPU.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import math
 from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
+
+from neuralgaussiansplatting_torch.ops import _build
+
+launches = 0  # fused Adam launches since the caller last set it to 0
+
+# csrc/adam_update.cu: the groups one launch takes, and its C signature
+# (ptrs, sizes, scalars, count, coefs; the last pointer is the stream)
+MAX_GROUPS = 32
+_ARGS = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+         ctypes.c_void_p, ctypes.c_void_p)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,15 +123,79 @@ class Adam:
                                 torch.zeros_like(leaves[name]), 0)
                 for name in self.lrs}
 
-    def update(self, grads, state: dict, params):
+    def update(self, grads, state: dict, params, alive=None):
         """One Adam step: returns (new params, of ``params``' type, and new
-        state)."""
+        state). A gradient may be None (read as zeros); ``alive`` (N,) bool,
+        if given, zeroes the gradients of the rows it marks dead. On CUDA
+        one kernel launch updates every group (``MAX_GROUPS`` a launch),
+        bit-equal to ``update_reference``, which runs elsewhere."""
+        leaves = _leaves(params)
+        if any(leaves[name].device.type != "cuda" for name in self.lrs):
+            return self.update_reference(grads, state, params, alive)
+        global launches
+        f32 = np.float32
+        grads = _leaves(grads)
+        dev = leaves[next(iter(self.lrs))].device
+        if alive is not None:
+            alive = alive.to(dev, torch.bool).reshape(-1).contiguous()
+        # held until the launches are queued: a contiguous copy freed
+        # earlier could be handed to a later group's outputs
+        held, ptrs, sizes, scalars, new_state = [], [], [], [], {}
+        for name, lr in self.lrs.items():
+            p, mu, nu = (_kernel_input(t, leaves[name].shape, name)
+                         for t in (leaves[name], *state[name][:2]))
+            g = grads[name]
+            g = None if g is None else _kernel_input(g, p.shape, name)
+            mask = None if g is None else alive
+            if mask is not None and mask.numel() != p.shape[0]:
+                raise ValueError(f"alive has {mask.numel()} rows, {name} "
+                                 f"{p.shape[0]}")
+            count = state[name].count
+            rate = lr(count) if callable(lr) else lr
+            bc1 = f32(1) - f32(self.b1) ** f32(count + 1)
+            bc2 = f32(1) - f32(self.b2) ** f32(count + 1)
+            outs = [torch.empty_like(p) for _ in range(3)]
+            leaves[name] = outs[0]
+            new_state[name] = AdamGroup(outs[1], outs[2], count + 1)
+            if not p.numel():
+                continue
+            held += [p, g, mu, nu]
+            ptrs.append([_ptr(t) for t in (p, g, mu, nu, *outs, mask)])
+            sizes.append((p.numel(), p[0].numel() if p.ndim else 1))
+            # PyTorch's CUDA division by a host scalar multiplies by its
+            # float32 reciprocal: the kernel takes 1 / bc, rounded alike
+            scalars.append((f32(-rate), f32(1) / bc1, f32(1) / bc2,
+                            f32(self.eps)))
+        ptrs = np.array(ptrs, dtype=np.int64)
+        sizes = np.array(sizes, dtype=np.int64)
+        scalars = np.array(scalars, dtype=np.float32)
+        coefs = np.array([1 - self.b1, self.b1, 1 - self.b2, self.b2],
+                         dtype=np.float32)
+        for i in range(0, len(ptrs), MAX_GROUPS):
+            _build.launch("adam_update", _ARGS, dev,
+                          ptrs[i:].ctypes.data, sizes[i:].ctypes.data,
+                          scalars[i:].ctypes.data,
+                          min(MAX_GROUPS, len(ptrs) - i), coefs.ctypes.data)
+            launches += 1
+        if hasattr(params, "_replace"):
+            return params._replace(**leaves), new_state
+        return leaves, new_state
+
+    def update_reference(self, grads, state: dict, params, alive=None):
+        """``update`` as plain tensor code, on any device: the dead-slot
+        select as ``torch.where``, then Adam's out-of-place passes, the
+        order of operations the kernel repeats."""
         f32 = np.float32
         grads = _leaves(grads)
         new_params = _leaves(params)
         new_state = {}
         for name, lr in self.lrs.items():
             g = grads[name]
+            if g is None:
+                g = torch.zeros_like(new_params[name])
+            elif alive is not None:
+                g = torch.where(alive.reshape((g.shape[0],)
+                                              + (1,) * (g.ndim - 1)), g, 0.0)
             mu, nu, count = state[name]
             rate = lr(count) if callable(lr) else lr
             mu = (1 - self.b1) * g + self.b1 * mu
@@ -128,6 +209,18 @@ class Adam:
         if hasattr(params, "_replace"):
             return params._replace(**new_params), new_state
         return new_params, new_state
+
+
+def _ptr(t: torch.Tensor | None) -> int:
+    return 0 if t is None else t.data_ptr()
+
+
+def _kernel_input(t: torch.Tensor, shape, name: str) -> torch.Tensor:
+    """``t`` as a contiguous float32 tensor of ``shape``, for the kernel."""
+    if t.dtype != torch.float32 or t.shape != shape:
+        raise ValueError(f"the Adam kernel takes float32 {name} of shape "
+                         f"{tuple(shape)}, got {t.dtype} {tuple(t.shape)}")
+    return t.contiguous()
 
 
 def make_optimizer(opt: OptimizationParams, spatial_lr_scale: float) -> Adam:

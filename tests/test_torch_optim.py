@@ -7,6 +7,10 @@ schedule's exp/log may round one ulp apart). Densification gets the split
 noise JAX draws from its key (``jax.random.split`` then
 ``jax.random.normal``, as the JAX ``densify_and_prune`` does), so both sides
 sample the same points; the RNGs themselves are not matched.
+
+On the CPU ``Adam.update`` is its plain version, ``update_reference``, bit
+for bit; its ``alive`` mask is the ``torch.where`` the training step used
+to apply itself, and a ``None`` gradient reads as zeros.
 """
 
 import jax
@@ -22,13 +26,17 @@ from neuralgaussiansplatting_tpu.ops import transforms as jtr
 from neuralgaussiansplatting_tpu.train import densify as jdens
 from neuralgaussiansplatting_tpu.train import optim as joptim
 from neuralgaussiansplatting_tpu.utils import losses as jlosses
+from neuralgaussiansplatting_torch.gaussian_renderer import render as trender
 from neuralgaussiansplatting_torch.models import gaussians as tgm
+from neuralgaussiansplatting_torch.ops import rasterize as trast
 from neuralgaussiansplatting_torch.train import densify as tdens
+from neuralgaussiansplatting_torch.train import loop as tloop
 from neuralgaussiansplatting_torch.train import optim as toptim
 from neuralgaussiansplatting_torch.utils import general as tgeneral
 from neuralgaussiansplatting_torch.utils import losses as tlosses
 
-from torch_parity import jax_opt_groups, to_torch
+from torch_parity import (jax_opt_groups, port_camera, port_model, to_torch,
+                          train_step_inputs)
 
 torch.set_num_threads(2)
 
@@ -289,3 +297,119 @@ def test_densification_stats_match_jax():
     for name, a, b in zip(jgm.GaussianState._fields, want, got):
         np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=1e-6,
                                    err_msg=name)
+
+
+def _bits(x, y, name):
+    """Equal bit for bit, NaN where NaN."""
+    torch.testing.assert_close(x, y, rtol=0, atol=0, equal_nan=True,
+                               msg=name)
+
+
+def _equal_updates(a, b):
+    (pa, sa), (pb, sb) = a, b
+    for name, x, y in zip(pa._fields, pa, pb):
+        _bits(x, y, name)
+    assert sa.keys() == sb.keys()
+    for name in sa:
+        assert sa[name].count == sb[name].count, name
+        _bits(sa[name].mu, sb[name].mu, name)
+        _bits(sa[name].nu, sb[name].nu, name)
+
+
+def test_update_on_the_cpu_is_the_plain_version():
+    (jp, _), (tp, _) = _models(seed=3)
+    ttx = toptim.make_optimizer(toptim.OptimizationParams(), 2.5)
+    rng = np.random.default_rng(21)
+    state = ttx.init(tp)
+    toptim.launches = 0
+    for _ in range(3):
+        grads = tgm.GaussianParams(*map(to_torch, _random_grads(jp, rng)))
+        got = ttx.update(grads, state, tp)
+        want = ttx.update_reference(grads, state, tp)
+        _equal_updates(got, want)
+        tp, state = got
+    assert toptim.launches == 0
+
+
+def test_update_alive_is_the_select_then_the_update():
+    """``update(..., alive=m)`` is ``torch.where(m, g, 0)`` on every
+    gradient, then the update: dead rows' NaN gradients never reach the
+    moments. A ``None`` gradient is a gradient of zeros, mask or not."""
+    (jp, _), (tp, ts) = _models(seed=4)
+    ttx = toptim.make_optimizer(toptim.OptimizationParams(), 1.0)
+    rng = np.random.default_rng(22)
+    alive = ts.alive.clone()
+    alive[[0, 7]] = False
+    assert (~alive).sum() > 2
+    state = ttx.init(tp)
+    for _ in range(2):
+        grads = tgm.GaussianParams(*map(to_torch, _random_grads(jp, rng)))
+        grads = grads._replace(**{f: torch.where(
+            alive.reshape((CAP,) + (1,) * (g.ndim - 1)), g, float("nan"))
+            for f, g in zip(grads._fields, grads)})
+        selected = grads._replace(**{f: torch.where(
+            alive.reshape((CAP,) + (1,) * (g.ndim - 1)), g, 0.0)
+            for f, g in zip(grads._fields, grads)})
+        got = ttx.update(grads, state, tp, alive=alive)
+        _equal_updates(got, ttx.update_reference(selected, state, tp))
+        for name, group in got[1].items():
+            assert torch.isfinite(group.mu).all(), name
+        # no features gradient: zeros, with the mask or without
+        no_feat = ttx.update(grads._replace(features=None), state, tp,
+                             alive=alive)
+        _equal_updates(no_feat, ttx.update_reference(
+            selected._replace(features=torch.zeros_like(tp.features)),
+            state, tp))
+        tp, state = got
+
+
+def _step_before_the_mask_moved(ts, cam, gt, bg, *, tx, settings):
+    """``train_step``'s optimizer stage as it was before Adam took the
+    dead-slot mask: zeros for a leaf without a gradient, ``torch.where``
+    over every gradient, then the plain update."""
+    params = ts.params
+    n = params.xyz.shape[0]
+    leaves = {f: getattr(params, f).detach().requires_grad_()
+              for f in tloop.TRAINABLE}
+    offset = params.xyz.new_zeros((n, 2), requires_grad=True)
+    out = trender(cam, params._replace(**leaves), ts.gstate.alive, 3, bg,
+                  settings, means2d_offset=offset)
+    loss = tlosses.photometric_loss(out["render"], gt, 0.2)
+    inputs = list(leaves.values()) + [offset]
+    grads = torch.autograd.grad(loss, inputs, allow_unused=True)
+    grads = [torch.zeros_like(x) if g is None else g
+             for x, g in zip(inputs, grads)]
+    goff = grads.pop()
+    alive = ts.gstate.alive
+    grads = {f: torch.where(alive.reshape((n,) + (1,) * (g.ndim - 1)), g,
+                            0.0) for f, g in zip(leaves, grads)}
+    new_params, opt_state = tx.update_reference(params._replace(**grads),
+                                                ts.opt_state, params)
+    gstate = tdens.add_densification_stats(ts.gstate, out["radii"], goff)
+    return tloop.TrainState(new_params, gstate, opt_state, ts.step + 1), loss
+
+
+def test_train_step_on_the_cpu_is_unchanged_by_the_fused_select():
+    """Two ``train_step``s (a NaN centre in a dead slot) against the stage
+    as it was: parameters, moments, statistics and loss bit for bit."""
+    settings = trast.make_settings(
+        "seq", capacity=1 << 13, max_per_tile=1024, fast_sort=True,
+        tight_culling=True, precise_cull=True)
+    params, state, cam, gt, bg = train_step_inputs(300, 320, settings)
+    tp, gs = port_model(params, state)
+    tp = tp._replace(xyz=tp.xyz.clone())
+    tp.xyz[319] = float("nan")
+    ttx = toptim.make_optimizer(toptim.OptimizationParams(), 1.5)
+    cam, gt, bg = port_camera(cam), to_torch(gt), to_torch(bg)
+    new = old = tloop.TrainState(tp, gs, ttx.init(tp), 0)
+    for _ in range(2):
+        new, metrics = tloop.train_step(new, cam, gt, bg, tx=ttx,
+                                        sh_degree=3, settings=settings,
+                                        lambda_dssim=0.2)
+        old, loss = _step_before_the_mask_moved(old, cam, gt, bg, tx=ttx,
+                                                settings=settings)
+        assert torch.equal(metrics["loss"], loss.detach())
+        _equal_updates((new.params, new.opt_state),
+                       (old.params, old.opt_state))
+        for name, x, y in zip(new.gstate._fields, new.gstate, old.gstate):
+            _bits(x, y, name)
