@@ -141,13 +141,13 @@ from neuralgaussiansplatting_torch.models import gaussians as gm
 from neuralgaussiansplatting_torch.models import nets
 from neuralgaussiansplatting_torch.ops import _build
 from neuralgaussiansplatting_torch.ops import binning
+from neuralgaussiansplatting_torch.ops import blend
 from neuralgaussiansplatting_torch.ops import blend_pallas
 from neuralgaussiansplatting_torch.ops import blend_seq
 from neuralgaussiansplatting_torch.ops import decode_runs
 from neuralgaussiansplatting_torch.ops import idxmap as idxmap_ops
 from neuralgaussiansplatting_torch.ops import knn
 from neuralgaussiansplatting_torch.ops import preprocess as pp
-from neuralgaussiansplatting_torch.ops import blend as blend_plain
 from neuralgaussiansplatting_torch.ops import rasterize as rast
 from neuralgaussiansplatting_torch.ops import zbuffer_pallas
 from neuralgaussiansplatting_torch.ops import projection as proj
@@ -213,7 +213,7 @@ FP32_OPS_PER_S = 67e12
 # backward: those before its own n_contrib), the power only where the pixel
 # lies inside the instance's box and alpha only where the power lies in
 # [cutoff, 0] (the kernels' own cutoff and box, which leave out only pairs
-# whose alpha is 0; ``blend_seq.blend_pair_counts`` counts them). The power
+# whose alpha is 0; ``blend.blend_pair_counts`` counts them). The power
 # by what each of its terms depends on, (per such pair, per (instance,
 # pixel column) and per (instance, pixel row) of a tile that holds one):
 # "seq" (K1, K2), -0.5*(A*(dx*dx) + C*(dy*dy)) - B*(dx*dy): dx, dx*dx,
@@ -477,7 +477,7 @@ def k1_inputs(params, state, cam, settings=SETTINGS):
         packed_capacity=settings.packed_capacity,
         precise_cull=settings.precise_cull, block_x=settings.block_x,
         block_y=settings.block_y, width=cam.width, height=cam.height)
-    packed = blend_pallas.pack_gather(blend_pallas.pack_instance_attrs_t(
+    packed = blend.pack_gather(blend.pack_instance_attrs_t(
         pre.means2d, pre.conic, pre.opacity, pre.rgb), inst.gid)
     return packed, inst, tiles_x
 
@@ -514,7 +514,7 @@ def sized_settings(probe, params, alive, cam):
 
 def phase_build():
     t0 = time.perf_counter()
-    logs = _build.build(["blend_seq_fwd", "blend_seq_bwd", "blend_seq_stage",
+    logs = _build.build(["blend_seq_fwd", "blend_seq_bwd", "blend_stage",
                          "zbuffer_fwd", "blend_pallas_fwd",
                          "blend_pallas_bwd", "decode_runs", "mosaic_probe",
                          "preprocess_fwd", "preprocess_bwd",
@@ -836,7 +836,7 @@ def phase_adam() -> dict:
 
 def pair_ops(kernel, blend_ops, tile, association):
     """The operation count of a blend kernel as the function needs it
-    (``blend_seq.blend_pair_counts`` at ``tile`` (block_x, block_y), the
+    (``blend.blend_pair_counts`` at ``tile`` (block_x, block_y), the
     power rounded in ``association``): forward ("k1", "k4") or backward
     ("k2", "k5"), ``blend_ops`` per blended pair; a ``count`` for
     ``fwd_parity`` and ``bwd_parity``. Fails unless the blended pairs, and
@@ -844,7 +844,7 @@ def pair_ops(kernel, blend_ops, tile, association):
     side = "fwd" if kernel in ("k1", "k4") else "bwd"
 
     def count(args, raw, pairs, blended):
-        n = blend_seq.blend_pair_counts(*args[:4], *tile, raw, association)
+        n = blend.blend_pair_counts(*args[:4], *tile, raw, association)
         check(n["blended"] == blended and (side == "bwd"
                                            or n["visited"] == pairs),
               f"{kernel} pair counts {n} disagree with the plain version's "
@@ -899,7 +899,7 @@ def fwd_parity(label, kernel, plain, args, pix, count_ops, plain_reps=2):
     if plain_reps:
         plain_ms = cuda_ms(lambda: plain(*args), reps=plain_reps)
     ops, account = count_ops(args, got, pairs, blended)
-    nbytes = (blend_pallas.PROWS * n_inst * 4 + 2 * num_tiles * 4
+    nbytes = (blend.PROWS * n_inst * 4 + 2 * num_tiles * 4
               + num_tiles * 5 * pix * 4)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / FP32_OPS_PER_S * 1e3
@@ -1035,7 +1035,7 @@ def photometric_cotangent(raw, tiles_x, tiles_y, target, bg, block_x=32,
     as ``rasterize`` assembles it."""
     raw = raw.detach().requires_grad_()
     color = raw[:, 0:3].transpose(1, 2) + raw[:, 3][..., None] * bg
-    image = blend_plain.assemble_image(
+    image = blend.assemble_image(
         color, tiles_x, tiles_y, block_x, block_y, target.shape[2],
         target.shape[1]).permute(2, 0, 1)
     loss = losses.photometric_loss(image, target, 0.2)
@@ -1094,9 +1094,9 @@ def bwd_parity(label, fwd, bwd, plain, packed, inst, rest, tile, count_ops,
         plain_ms = cuda_ms(lambda: plain(*bwd_args), reps=plain_reps)
     ops, account = count_ops((*args, *rest), raw, walked, blended)
     num_tiles = inst.tile_count.shape[0]
-    nbytes = (blend_pallas.PROWS * int(stop.sum()) * 4 + 2 * num_tiles * 4
+    nbytes = (blend.PROWS * int(stop.sum()) * 4 + 2 * num_tiles * 4
               + num_tiles * (5 + 4) * tile[0] * tile[1] * 4
-              + blend_pallas.PROWS * packed.shape[1] * 4)
+              + blend.PROWS * packed.shape[1] * 4)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / FP32_OPS_PER_S * 1e3
     print(f"{label} timing: {ms:.4f} ms/launch (device time, 50 launches), "

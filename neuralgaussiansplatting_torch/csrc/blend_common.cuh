@@ -1,13 +1,13 @@
 // What the four blend kernels share: K1 and K2 (blend_seq_{fwd,bwd}.cu, 32x32
 // tiles) and K4 and K5 (blend_pallas_{fwd,bwd}.cu, any tile shape). The JAX
 // package's constants, the batch staging with its alpha-floor cutoff and
-// per-instance box (blend_seq_stage.cu evaluates both for the tests), and
+// per-instance box (blend_stage.cu evaluates both for the tests), and
 // the warp sum of the backward kernels' 9 gradient rows.
 #pragma once
 
 #include <cuda_runtime.h>
 
-namespace blend_seq {
+namespace blend {
 
 constexpr int kTile = 32;
 constexpr int kPix = kTile * kTile;  // 1024 pixels per tile
@@ -23,24 +23,24 @@ constexpr float kAlphaMin = 0x1.010102p-8f;  // 1/255
 constexpr float kStopT = 0x1.a36e2ep-14f;    // 1e-4
 
 // The power below which an instance of opacity `op` cannot blend: for
-// power < seq_cutoff(op), min(0.99, op*expf(power)) < 1/255 in float32, so
-// the pair's a is 0. ops/blend_seq.py::alpha_floor_cutoff computes the same
+// power < alpha_cutoff(op), min(0.99, op*expf(power)) < 1/255 in float32, so
+// the pair's a is 0. ops/blend.py::alpha_floor_cutoff computes the same
 // in PyTorch. The margin 2^-13*(1 + |l|) covers the rounding on both sides
 // of the test: the division (0.5 ulp), logf (1 ulp), the subtraction (0.5
 // ulp of the cutoff), expf (2 ulp) and the product op*expf (0.5 ulp) add up
 // to ~1e-6*(1 + |l|) of power, 100x below it. op <= 0 or NaN gives NaN (or
 // -inf): no pair is skipped.
-__device__ __forceinline__ float seq_cutoff(float op) {
+__device__ __forceinline__ float alpha_cutoff(float op) {
   const float l = logf(kAlphaMin / op);
   return l - (1.f + fabsf(l)) * 0x1p-13f;
 }
 
 // A box around the pixels on which an instance can blend: for a pixel
 // outside [x_lo, x_hi] x [y_lo, y_hi], the power that K1, K2, K4 and K5
-// compute in float32 lies below seq_cutoff(op), so the pair is skipped
+// compute in float32 lies below alpha_cutoff(op), so the pair is skipped
 // anyway; a warp
 // whose patch misses the box skips the instance without computing any
-// power. ops/blend_seq.py::instance_box computes the same in PyTorch. With
+// power. ops/blend.py::instance_box computes the same in PyTorch. With
 // M = [[A, B], [B, C]] and q = d^T M d, power = -q/2 exactly; the pixels
 // with q <= r^2 (r^2 = -2 cut (1 + 2^-10)) lie within |dx| <= r sqrt(C /
 // det), |dy| <= r sqrt(A / det). The float32 power is within (2.5 / (1 -
@@ -70,8 +70,9 @@ __device__ __forceinline__ float seq_cutoff(float op) {
 // 2^-24 * q of -q/2, and the box, its widening and its guard carry over
 // unchanged. The CPU and card sweeps (tests/test_torch_blend.py,
 // tests/test_torch_cuda.py) hold the box in both orders.
-__device__ __forceinline__ float4 seq_box(float mx, float my, float ca,
-                                          float cbc, float cc, float cut) {
+__device__ __forceinline__ float4 instance_box(float mx, float my,
+                                               float ca, float cbc, float cc,
+                                               float cut) {
   const float kInf = __int_as_float(0x7f800000);
   if (cut >= 0.f) return make_float4(kInf, -kInf, kInf, -kInf);
   const float ac = ca * cc;
@@ -91,7 +92,7 @@ __device__ __forceinline__ float4 seq_box(float mx, float my, float ca,
 struct alignas(16) Staged {
   float4 box;             // x_lo, x_hi, y_lo, y_hi
   float mx, my, ca, cbc;  // mean2d x, y, conic A, B
-  float cc, op, cut, r;   // conic C, opacity, seq_cutoff(op), red
+  float cc, op, cut, r;   // conic C, opacity, alpha_cutoff(op), red
   float g, b, pad0, pad1;
 };
 
@@ -107,8 +108,8 @@ __device__ __forceinline__ Staged stage(const float* __restrict__ packed,
   st.mx = v[0], st.my = v[1], st.ca = v[2], st.cbc = v[3], st.cc = v[4];
   st.op = v[5], st.r = v[6], st.g = v[7], st.b = v[8];
   st.pad0 = st.pad1 = 0.f;
-  st.cut = seq_cutoff(st.op);
-  st.box = seq_box(st.mx, st.my, st.ca, st.cbc, st.cc, st.cut);
+  st.cut = alpha_cutoff(st.op);
+  st.box = instance_box(st.mx, st.my, st.ca, st.cbc, st.cc, st.cut);
   return st;
 }
 
@@ -209,4 +210,4 @@ inline int launch_info(const void* kernel, int threads, int per_tile,
   return static_cast<int>(err);
 }
 
-}  // namespace blend_seq
+}  // namespace blend

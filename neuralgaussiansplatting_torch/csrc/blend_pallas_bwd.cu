@@ -47,7 +47,7 @@
 // (chip_smoke.py works the bound out from each run's data). The first design
 // (row-strip warps, an expf on every pair, every pixel walked to the tile's
 // deepest contributor, a 45-shuffle butterfly per instance) spent its time on
-// work no output uses. K2's tools (blend_seq_common.cuh) carry over, so
+// work no output uses. K2's tools (blend_common.cuh) carry over, so
 // (PERF.md has the split of the time):
 //
 // - One CTA per tile, kPer pixels per thread. Where the tile divides into
@@ -60,9 +60,9 @@
 // - Each pixel stops at its own n_contrib when it was tracked (past it the
 //   pixel blends nothing) and on done; each warp at the deepest stop of its
 //   pixels, writing zeros for the rest of the batch.
-// - K4's exact alpha-floor skip (seq_cutoff: a pair below the cutoff has
+// - K4's exact alpha-floor skip (alpha_cutoff: a pair below the cutoff has
 //   a = 0, so w = 0 and it adds exactly zero) and per-warp box test
-//   (seq_box): a warp whose pixels all lie outside an instance's box
+//   (instance_box): a warp whose pixels all lie outside an instance's box
 //   writes its zero partials without computing any power.
 // - The per-pixel work is straight-line code under warp-wide votes (the
 //   gradient terms run when any lane of the warp needs them), so that a
@@ -79,11 +79,11 @@
 
 #include <cuda_runtime.h>
 
-#include "blend_seq_common.cuh"
+#include "blend_common.cuh"
 
 namespace {
 
-using namespace blend_seq;
+using namespace blend;
 
 constexpr int kMaxPix = 2048;
 
@@ -373,7 +373,7 @@ int blend_pallas_bwd(const void* tile_start, const void* tile_count,
 }
 
 // The launch that a block_x x block_y tile takes and its residency on the
-// current device, into info[6] (blend_seq_common.cuh's launch_info).
+// current device, into info[6] (blend_common.cuh's launch_info).
 int blend_pallas_bwd_layout(int block_x, int block_y, int* info) {
   if (block_x < 1 || block_y < 1 || block_x * block_y > kMaxPix)
     return static_cast<int>(cudaErrorInvalidValue);

@@ -37,7 +37,7 @@
 // per pixel (chip_smoke.py works the bound out from each run's data). The first
 // design (one block per tile, row-strip warps, several pixels per thread at
 // 32x32, an expf on every visited pair) spent its time on pairs that cannot
-// blend and on the tail of the densest tiles. K1's tools (blend_seq_common.cuh)
+// blend and on the tail of the densest tiles. K1's tools (blend_common.cuh)
 // apply as they are, so (PERF.md has the split of the time):
 //
 // - Blocks of at most 256 threads, several blocks per tile above 256 cells
@@ -52,11 +52,11 @@
 //   included) one pixel per thread, 32 row-major pixels per warp. The
 //   warp's box test uses the extent of its own pixels either way.
 // - The exact alpha-floor skip: below the instance's power cutoff
-//   (seq_cutoff) alpha is below 1/255, so a = 0 and the pair is a no-op in
+//   (alpha_cutoff) alpha is below 1/255, so a = 0 and the pair is a no-op in
 //   the product form: T*(1 - 0) = T, w = 0*T = 0, no colour or n_contrib
 //   change, and done stays false because T >= 1e-4 already held. The pair
 //   gets no expf, and the output stays bit-equal.
-// - The exact per-warp box test (seq_box, which holds for this kernel's
+// - The exact per-warp box test (instance_box, which holds for this kernel's
 //   association: see its comment): a warp whose pixels all lie outside an
 //   instance's box skips it after one 16-byte load and four compares.
 // - The expf and the blend run under a warp-wide vote, as straight-line
@@ -66,11 +66,11 @@
 
 #include <cuda_runtime.h>
 
-#include "blend_seq_common.cuh"
+#include "blend_common.cuh"
 
 namespace {
 
-using namespace blend_seq;
+using namespace blend;
 
 constexpr int kMaxPix = 2048;
 
@@ -258,7 +258,7 @@ int blend_pallas_fwd(const void* tile_start, const void* tile_count,
 }
 
 // The launch that a block_x x block_y tile takes and its residency on the
-// current device, into info[6] (blend_seq_common.cuh's launch_info).
+// current device, into info[6] (blend_common.cuh's launch_info).
 int blend_pallas_fwd_layout(int block_x, int block_y, int* info) {
   if (block_x < 1 || block_y < 1 || block_x * block_y > kMaxPix)
     return static_cast<int>(cudaErrorInvalidValue);

@@ -49,9 +49,9 @@
 // - Each pixel stops at its own n_contrib (past it the pixel blends
 //   nothing) and on done; each warp at the deepest contributor of its 128
 //   pixels, writing zeros for the rest of the batch.
-// - K1's exact alpha-floor skip (seq_cutoff, blend_seq_common.cuh): a pair
+// - K1's exact alpha-floor skip (alpha_cutoff, blend_common.cuh): a pair
 //   below the cutoff has a = 0, so w = 0 and it adds exactly zero
-//   everywhere; and K1's per-warp box test (seq_box): a warp whose 16x8
+//   everywhere; and K1's per-warp box test (instance_box): a warp whose 16x8
 //   patch misses an instance's box writes its zero partials without
 //   computing any power.
 // - The per-pixel work is straight-line code under warp-wide votes (the
@@ -69,11 +69,11 @@
 
 #include <cuda_runtime.h>
 
-#include "blend_seq_common.cuh"
+#include "blend_common.cuh"
 
 namespace {
 
-using namespace blend_seq;
+using namespace blend;
 
 constexpr int kPerThread = 4;  // a 2x2 cell: pixel q at (q % 2, q / 2)
 

@@ -39,13 +39,13 @@
 //   batch), and writes its pixels into the unchanged (T, 5, 1024) layout;
 //   a warp whose pixels are all done leaves the batch.
 // - An exact alpha-floor skip. When a batch is staged, each instance gets
-//   a power cutoff (seq_cutoff, blend_seq_common.cuh); a pair whose power
+//   a power cutoff (alpha_cutoff, blend_common.cuh); a pair whose power
 //   lies below it gets no expf. Its alpha would be below 1/255, so a = 0
 //   and the pair is a no-op: T*0 = 0, t_new = T, no colour or n_contrib
 //   change, and done stays false because T >= 1e-4 already held. The
 //   output stays bit-equal.
 // - An exact per-warp box test. Each staged instance also gets a box
-//   (seq_box) outside which every pixel's power lies below its cutoff; a
+//   (instance_box) outside which every pixel's power lies below its cutoff; a
 //   warp whose 8x4 patch misses the box skips the instance after one
 //   16-byte load and four compares, without computing any power.
 // - The expf and the blend run under a warp-wide vote (when any lane of
@@ -54,11 +54,11 @@
 
 #include <cuda_runtime.h>
 
-#include "blend_seq_common.cuh"
+#include "blend_common.cuh"
 
 namespace {
 
-using namespace blend_seq;
+using namespace blend;
 
 constexpr int kSplit = 4;  // blocks per tile, one 16x16 quadrant each
 

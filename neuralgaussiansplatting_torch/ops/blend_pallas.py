@@ -1,36 +1,18 @@
-"""The 16x16 lane-layout blend (kernels K4, K5) and the per-instance packing.
+"""K4 and K5, the blend kernels of any tile shape: the 16x16 lane-layout
+blend.
 
-Port of ``ops/blend_pallas.py``. ``blend_tiles`` is the public blend of
-``backend="pallas"`` (and of every ``"seq"`` setting that is not 32x32 tiles
-with chunk 128), differentiable through ``torch.autograd``: its forward is
-kernel K4 (``csrc/blend_pallas_fwd.cu``, replacing the TPU kernel
-``_fwd_kernel``) and its backward kernel K5 (``csrc/blend_pallas_bwd.cu``,
-replacing ``_bwd_kernel``), with the JAX ``custom_vjp``'s contract. Both take
-any tile shape up to ``MAX_PIX`` pixels; the binning chunk is only the
-alignment of each tile's segment and changes nothing in them. Both skip the
-pairs and instances that cannot blend by K1's and K2's exact alpha-floor
-cutoff and per-warp box (``blend_seq.alpha_floor_cutoff`` /
-``instance_box``), which hold for their association of the power
-(``blend_seq.blend_power(..., "pallas")``).
-
-``blend_pallas_fwd`` and ``blend_pallas_bwd`` are the kernels' wrappers: on a
-CUDA tensor each launches its kernel or raises, never falling back; on a CPU
-tensor each runs its kernel's plain PyTorch version
+Port of ``ops/blend_pallas.py``. ``blend_pallas_fwd`` wraps kernel K4
+(``csrc/blend_pallas_fwd.cu``, replacing the TPU kernel ``_fwd_kernel``) and
+``blend_pallas_bwd`` kernel K5 (``csrc/blend_pallas_bwd.cu``, replacing
+``_bwd_kernel``): on a CUDA tensor each launches its kernel or raises, never
+falling back; on a CPU tensor each runs its kernel's plain PyTorch version
 (``blend_tiles_pallas_reference``, ``blend_tiles_pallas_bwd_reference``),
-which repeats the kernel's recurrence in the same operation order.
-``launches`` and ``bwd_launches`` count the K4 and K5 launches.
-
-The packed table has one column per Gaussian plus an all-zero sentinel
-column at index N: padding instances carry ``gid == N``, so they read zeros
-(opacity 0 => alpha 0) and every blend update they make is a no-op.
-
-The gradient of ``pack_gather`` sums each Gaussian's per-slot gradient rows:
-a stable sort of the slots by ``gid``, then a sum over each Gaussian's run of
-slots in slot order. That is exact over the slots present, whether or not
-binning dropped instances (what the JAX package's ``grad_reduce`` modes reach
-through two sort variants and a scatter), and it repeats bit for bit: no
-atomics. The JAX package's cumsum-difference reduction is a TPU layout
-device and is not ported.
+which repeats the kernel's recurrence in the same operation order. Both
+take any tile shape up to ``MAX_PIX`` pixels; the binning chunk is only the
+alignment of each tile's segment and changes nothing in them. ``launches``
+and ``bwd_launches`` count the K4 and K5 launches, and ``kernel_layout``
+reports their launch and residency on the card. ``rasterize.blend_tiles``
+differentiates through the pair.
 """
 
 from __future__ import annotations
@@ -40,16 +22,10 @@ import ctypes
 import torch
 
 from neuralgaussiansplatting_torch.ops import _build
-from neuralgaussiansplatting_torch.ops.binning import Instances
 from neuralgaussiansplatting_torch.ops.blend import (
-    ALPHA_MAX, ALPHA_MIN, STOP_T, BlendResult, tile_pixel_coords,
+    ALPHA_MAX, ALPHA_MIN, STOP_T, check_blend_inputs, tile_pixel_coords,
 )
 
-# Packed row layout: 0:x 1:y 2:conic_A 3:conic_B 4:conic_C 5:opacity 6:r 7:g
-# 8:b. (The TPU kernels pad these 9 rows to 16 sublanes; the CUDA kernels
-# read and write the 9 rows directly.)
-PROWS = 9
-CHUNK = 128      # binning alignment of make_settings("pallas")
 MAX_PIX = 2048   # most pixels in a tile K4/K5 take (K4: 8 blocks of 256
                  # threads; K5: 256 threads x 8 pixels)
 
@@ -61,98 +37,6 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # the stream)
 _FWD_ARGS = (_P, _P, _P, _LL, _I, _I, _I, _I, _I, _P, _P)
 _BWD_ARGS = (_P, _P, _P, _LL, _P, _P, _I, _I, _I, _I, _I, _P, _P)
-
-
-def pack_instance_attrs_t(means2d, conic, opacity, rgb):
-    """Per-Gaussian attrs -> (9, N + 1) float32 columns; the last column is
-    the all-zero sentinel for padding instances."""
-    packed = torch.stack([
-        means2d[:, 0], means2d[:, 1],
-        conic[:, 0], conic[:, 1], conic[:, 2],
-        opacity,
-        rgb[:, 0], rgb[:, 1], rgb[:, 2],
-    ], dim=0).float()                                  # (9, N)
-    return torch.cat([packed, packed.new_zeros((PROWS, 1))], dim=1)
-
-
-def sum_rows_by_id(rows: torch.Tensor, ids: torch.Tensor,
-                   n: int) -> torch.Tensor:
-    """(K, C) rows -> (n, C) sums of the rows of each id in [0, n).
-
-    Rows with ``id == n`` (padding) are left out. Each id's rows are added
-    in row order: a stable sort by id, then one sum per id's run, so the
-    result repeats bit for bit (no atomics).
-    """
-    ids = ids.long()
-    order = torch.argsort(ids, stable=True)
-    starts = torch.searchsorted(ids[order],
-                                torch.arange(n + 1, device=ids.device))
-    # n segments [starts[g], starts[g + 1]); the padding run after
-    # starts[n] is not one of them. unsafe=True skips validation that would
-    # sync the host; the offsets are monotone and within [0, K].
-    return torch.segment_reduce(rows[order], "sum", offsets=starts, axis=0,
-                                unsafe=True)
-
-
-def reduce_by_gaussian(cot9: torch.Tensor, gid: torch.Tensor,
-                       n: int) -> torch.Tensor:
-    """(9, K) per-slot rows -> (9, n + 1) per-Gaussian sums.
-
-    Slots with ``gid == n`` (padding) are left out, and column n (the
-    sentinel) is zero. Each Gaussian's slots are added in slot order.
-    """
-    sums = sum_rows_by_id(cot9.t(), gid, n)            # (n, 9)
-    return torch.cat([sums, sums.new_zeros((1, PROWS))]).t().contiguous()
-
-
-class _PackGather(torch.autograd.Function):
-    """Gather by ``gid`` forward; the per-Gaussian sum backward."""
-
-    @staticmethod
-    def forward(ctx, packed_all, gid):
-        ctx.save_for_backward(gid)
-        ctx.num_gaussians = packed_all.shape[1] - 1
-        return packed_all[:, gid.long()].contiguous()
-
-    @staticmethod
-    def backward(ctx, cot):
-        (gid,) = ctx.saved_tensors
-        return reduce_by_gaussian(cot, gid, ctx.num_gaussians), None
-
-
-def pack_gather(packed_all: torch.Tensor, gid: torch.Tensor) -> torch.Tensor:
-    """(9, N + 1) packed table -> (9, K) per-instance columns by ``gid``,
-    differentiable with respect to ``packed_all``."""
-    return _PackGather.apply(packed_all, gid)
-
-
-def check_blend_inputs(packed, tile_start, tile_count, tiles_x, pix,
-                       *per_tile):
-    """Validate the blend kernels' common inputs; ``per_tile`` are (name,
-    tensor) pairs that must be (T, 5, pix) float32 on ``packed``'s
-    device."""
-    if packed.dtype != torch.float32 or packed.ndim != 2 \
-            or packed.shape[0] != PROWS:
-        raise ValueError(f"packed must be ({PROWS}, K) float32, got "
-                         f"{tuple(packed.shape)} {packed.dtype}")
-    for name, a in (("tile_start", tile_start), ("tile_count", tile_count)):
-        if a.dtype != torch.int32 or a.ndim != 1:
-            raise ValueError(f"{name} must be (T,) int32, got "
-                             f"{tuple(a.shape)} {a.dtype}")
-        if a.device != packed.device:
-            raise ValueError(f"{name} is on {a.device}, packed on "
-                             f"{packed.device}")
-    num_tiles = tile_start.shape[0]
-    if tile_count.shape[0] != num_tiles or num_tiles % tiles_x:
-        raise ValueError(f"{num_tiles} tile starts, {tile_count.shape[0]} "
-                         f"counts, {tiles_x} tiles per row")
-    for name, a in per_tile:
-        if a.dtype != torch.float32 or tuple(a.shape) != (num_tiles, 5, pix):
-            raise ValueError(f"{name} must be ({num_tiles}, 5, {pix}) "
-                             f"float32, got {tuple(a.shape)} {a.dtype}")
-        if a.device != packed.device:
-            raise ValueError(f"{name} is on {a.device}, packed on "
-                             f"{packed.device}")
 
 
 def _tile_pix(block_x: int, block_y: int) -> int:
@@ -178,7 +62,8 @@ def blend_pallas_fwd(packed: torch.Tensor, tile_start: torch.Tensor,
     pix = _tile_pix(block_x, block_y)
     check_blend_inputs(packed, tile_start, tile_count, tiles_x, pix)
     if not _build.on_cuda("blend_pallas_fwd",
-                          (packed, tile_start, tile_count), "blend_tiles"):
+                          (packed, tile_start, tile_count),
+                          "rasterize.blend_tiles"):
         return blend_tiles_pallas_reference(packed, tile_start, tile_count,
                                             tiles_x, block_x, block_y,
                                             track_contrib)
@@ -211,7 +96,7 @@ def blend_pallas_bwd(packed: torch.Tensor, tile_start: torch.Tensor,
                        ("raw", raw), ("cot", cot))
     if not _build.on_cuda("blend_pallas_bwd",
                           (packed, tile_start, tile_count, raw, cot),
-                          "blend_tiles"):
+                          "rasterize.blend_tiles"):
         return blend_tiles_pallas_bwd_reference(
             packed, tile_start, tile_count, raw, cot, tiles_x, block_x,
             block_y, track_contrib)
@@ -385,52 +270,3 @@ def blend_tiles_pallas_bwd_reference(packed: torch.Tensor,
     if return_pairs:
         return grad, int(walked), int(blended_pairs)
     return grad
-
-
-class _PallasBlend(torch.autograd.Function):
-    """K4 forward, K5 backward: the JAX ``custom_vjp`` of ``blend_tiles``
-    (raw outputs in, per-slot gradient rows out, masked by ``valid``)."""
-
-    @staticmethod
-    def forward(ctx, packed, tile_start, tile_count, valid, tiles_x,
-                block_x, block_y, track_contrib):
-        raw = blend_pallas_fwd(packed, tile_start, tile_count, tiles_x,
-                               block_x, block_y, track_contrib)
-        ctx.save_for_backward(packed, raw, tile_start, tile_count, valid)
-        ctx.shape = (tiles_x, block_x, block_y, track_contrib)
-        return raw
-
-    @staticmethod
-    def backward(ctx, cot):
-        packed, raw, tile_start, tile_count, valid = ctx.saved_tensors
-        grad = blend_pallas_bwd(packed, tile_start, tile_count, raw,
-                                cot.contiguous(), *ctx.shape)
-        grad = torch.where(valid[None, :], grad, 0.0)
-        return grad, None, None, None, None, None, None, None
-
-
-def blend_tiles(inst: Instances, means2d: torch.Tensor, conic: torch.Tensor,
-                opacity: torch.Tensor, rgb: torch.Tensor, tiles_x: int,
-                tiles_y: int, block_x: int, block_y: int, max_per_tile: int,
-                chunk: int = CHUNK, track_contrib: bool = True) -> BlendResult:
-    """Same contract as ``blend.blend_tiles``, through K4 (and K5 for the
-    gradient) on a CUDA device.
-
-    Takes any tile shape up to ``MAX_PIX`` pixels. ``chunk`` is the
-    alignment binning gave each tile's segment, and ``max_per_tile`` is
-    already applied by binning: neither changes the blend.
-    ``track_contrib=False`` leaves n_contrib zero; the gradient is the same,
-    but the backward then walks every instance of a tile.
-    """
-    del max_per_tile, chunk
-    if inst.tile_start.shape[0] != tiles_x * tiles_y:
-        raise ValueError(f"{inst.tile_start.shape[0]} tiles binned, "
-                         f"{tiles_x * tiles_y} expected")
-    packed = pack_gather(pack_instance_attrs_t(means2d, conic, opacity, rgb),
-                         inst.gid)
-    raw = _PallasBlend.apply(packed, inst.tile_start, inst.tile_count,
-                             inst.valid, tiles_x, block_x, block_y,
-                             track_contrib)
-    return BlendResult(color=raw[:, 0:3].transpose(1, 2),
-                       final_t=raw[:, 3],
-                       n_contrib=raw[:, 4].detach().to(torch.int32))

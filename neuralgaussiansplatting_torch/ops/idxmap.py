@@ -24,7 +24,7 @@ from typing import NamedTuple
 
 import torch
 
-from neuralgaussiansplatting_torch.ops.blend_pallas import sum_rows_by_id
+from neuralgaussiansplatting_torch.ops.blend import sum_rows_by_id
 from neuralgaussiansplatting_torch.ops.preprocess import CameraParams
 from neuralgaussiansplatting_torch.ops.zbuffer_pallas import (  # noqa: F401
     POINT_SIZE, compute_idxmap_tiled, point_footprints,   # POINT_SIZE: S

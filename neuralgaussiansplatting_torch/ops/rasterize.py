@@ -13,11 +13,12 @@ Backends:
 - ``"xla"``: the plain scan oracle of ``ops/blend.py``, on any device,
   differentiated by autograd.
 
-The route depends on the settings alone; ``blend_seq.launches`` and
-``blend_pallas.launches`` show which kernel ran. The preprocess before the
-blend runs its own kernels on every backend (``preprocess.launches``,
-``preprocess.bwd_launches``), except with precomputed covariances or
-colours.
+The route depends on the settings alone (``blend_route``), and
+``blend_tiles`` runs it: both kernel routes through one autograd Function.
+``blend_seq.launches`` and ``blend_pallas.launches`` show which kernel ran.
+The preprocess before the blend runs its own kernels on every backend
+(``preprocess.launches``, ``preprocess.bwd_launches``), except with
+precomputed covariances or colours.
 
 ``means2d_offset`` shifts the projected centres by offset * (W/2, H/2)
 pixels, the reference's screen-space densification convention: its
@@ -33,7 +34,7 @@ from typing import NamedTuple
 import torch
 
 from neuralgaussiansplatting_torch.ops import binning
-from neuralgaussiansplatting_torch.ops import blend as blend_plain
+from neuralgaussiansplatting_torch.ops import blend
 from neuralgaussiansplatting_torch.ops import blend_pallas
 from neuralgaussiansplatting_torch.ops import blend_seq
 from neuralgaussiansplatting_torch.ops import preprocess as pp
@@ -113,6 +114,66 @@ def blend_route(settings: RasterizeSettings) -> str:
     return backend
 
 
+class _SeqBlend(torch.autograd.Function):
+    """A kernel route's forward wrapper ``fwd``, and its backward wrapper
+    ``bwd`` masked by ``valid``, both called with the keywords ``kw``: the
+    JAX ``custom_vjp`` of the kernel blends (raw outputs in, per-slot
+    gradient rows out). Named for the main path's route: the benchmark's
+    stage tests read its node as ``_SeqBlendBackward``."""
+
+    @staticmethod
+    def forward(ctx, packed, tile_start, tile_count, valid, fwd, bwd, kw):
+        raw = fwd(packed, tile_start, tile_count, **kw)
+        ctx.save_for_backward(packed, raw, tile_start, tile_count, valid)
+        ctx.bwd, ctx.kw = bwd, kw
+        return raw
+
+    @staticmethod
+    def backward(ctx, cot):
+        packed, raw, tile_start, tile_count, valid = ctx.saved_tensors
+        grad = ctx.bwd(packed, tile_start, tile_count, raw, cot.contiguous(),
+                       **ctx.kw)
+        grad = torch.where(valid[None, :], grad, 0.0)
+        return grad, None, None, None, None, None, None
+
+
+def blend_tiles(inst: binning.Instances, means2d: torch.Tensor,
+                conic: torch.Tensor, opacity: torch.Tensor, rgb: torch.Tensor,
+                tiles_x: int, tiles_y: int,
+                settings: RasterizeSettings) -> blend.BlendResult:
+    """Blend the binned instances by the route of ``settings``
+    (``blend_route``), with ``blend.blend_tiles``' contract.
+
+    The kernel routes gather the packed table by ``gid`` and run K1 and K2
+    ("seq") or K4 and K5 ("pallas"), their plain versions on the CPU;
+    binning has already applied ``max_per_tile`` and the chunk.
+    ``track_contrib=False`` leaves n_contrib zero; the gradient is the
+    same, but the backward then walks every instance of a tile.
+    """
+    route = blend_route(settings)
+    if route == "xla":
+        return blend.blend_tiles(
+            inst, means2d, conic, opacity, rgb, tiles_x, tiles_y,
+            settings.block_x, settings.block_y, settings.max_per_tile,
+            settings.chunk)
+    if inst.tile_start.shape[0] != tiles_x * tiles_y:
+        raise ValueError(f"{inst.tile_start.shape[0]} tiles binned, "
+                         f"{tiles_x * tiles_y} expected")
+    kw = dict(tiles_x=tiles_x, track_contrib=settings.track_contrib)
+    if route == "seq":
+        fwd, bwd = blend_seq.blend_seq_fwd, blend_seq.blend_seq_bwd
+    else:
+        fwd, bwd = blend_pallas.blend_pallas_fwd, blend_pallas.blend_pallas_bwd
+        kw.update(block_x=settings.block_x, block_y=settings.block_y)
+    packed = blend.pack_gather(
+        blend.pack_instance_attrs_t(means2d, conic, opacity, rgb), inst.gid)
+    raw = _SeqBlend.apply(packed, inst.tile_start, inst.tile_count,
+                          inst.valid, fwd, bwd, kw)
+    return blend.BlendResult(color=raw[:, 0:3].transpose(1, 2),
+                             final_t=raw[:, 3],
+                             n_contrib=raw[:, 4].detach().to(torch.int32))
+
+
 def mark_visible(means3d: torch.Tensor, cam: pp.CameraParams) -> torch.Tensor:
     """Frustum visibility: view-space z > 0.2."""
     p_view = proj.transform_points_4x3(means3d, cam.view)
@@ -138,7 +199,6 @@ def rasterize(
     ``opacities`` (N,) and ``scales`` (N, 3) are activated; ``shs`` is
     (N, K, 3) or flat (N, 3K); ``bg`` (3,).
     """
-    backend = blend_route(settings)
     tiles_x, tiles_y = settings.tiles_for(cam.width, cam.height)
 
     with timing.span("ngs.preprocess"):
@@ -163,23 +223,13 @@ def rasterize(
             dense_cap=settings.dense_cap)
 
     def assemble(per_tile):
-        return blend_plain.assemble_image(
+        return blend.assemble_image(
             per_tile, tiles_x, tiles_y, settings.block_x, settings.block_y,
             cam.width, cam.height)
 
     with timing.span("ngs.blend"):
-        blend_args = (inst, pre.means2d, pre.conic, pre.opacity, pre.rgb,
-                      tiles_x, tiles_y, settings.block_x, settings.block_y,
-                      settings.max_per_tile, settings.chunk)
-        if backend == "seq":
-            res = blend_seq.blend_tiles_seq(
-                *blend_args, track_contrib=settings.track_contrib)
-        elif backend == "pallas":
-            res = blend_pallas.blend_tiles(
-                *blend_args, track_contrib=settings.track_contrib)
-        else:
-            res = blend_plain.blend_tiles(*blend_args)
-
+        res = blend_tiles(inst, pre.means2d, pre.conic, pre.opacity,
+                          pre.rgb, tiles_x, tiles_y, settings)
         color = res.color + res.final_t[..., None] * bg[None, None, :]
         return RenderOutput(
             color=assemble(color).permute(2, 0, 1),

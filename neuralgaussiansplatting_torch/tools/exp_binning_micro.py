@@ -20,7 +20,7 @@ boundaries (``binning_stages``), each row doing every stage up to its own:
 the JAX tool's seeded synthetic rows (9 x 1344Ki normal cotangents, 1.13M
 kept slots in a random order, per-Gaussian runs): "reduce sort-only" (the
 stable sort of the slots by rank and the row gather) and "reduce full"
-(``blend_pallas.reduce_by_gaussian``); "reduce drop-tolerant" has no
+(``blend.reduce_by_gaussian``); "reduce drop-tolerant" has no
 counterpart. ``variants`` runs the expand-stage variants instead: "ex only"
 (``binning._expand_runs`` of the four packed per-Gaussian fields) and the
 integer and float divisions of the packed rect, which have no counterpart
@@ -49,7 +49,7 @@ from neuralgaussiansplatting_torch import platform_device
 from neuralgaussiansplatting_torch.demo import demo_scene
 from neuralgaussiansplatting_torch.models import gaussians as gm
 from neuralgaussiansplatting_torch.ops import binning
-from neuralgaussiansplatting_torch.ops import blend_pallas
+from neuralgaussiansplatting_torch.ops import blend
 from neuralgaussiansplatting_torch.ops import preprocess as pp
 from neuralgaussiansplatting_torch.tools import _harness, _micro
 
@@ -204,7 +204,7 @@ def reduce_rows(n: int, device) -> list:
         return (c[:, order] + s).sum()
 
     def full(c, s):
-        return blend_pallas.reduce_by_gaussian(c + s, gid, n).sum()
+        return blend.reduce_by_gaussian(c + s, gid, n).sum()
 
     def make(fn):
         def body(carry, s):

@@ -8,7 +8,7 @@ binning of one view (K1 once for the forward it differentiates):
 
   [0] seq bwd kernel          K2 (``blend_seq.blend_seq_bwd``) alone
   [1] reduce sorted           the per-Gaussian sum of the 9 gradient rows
-                              (``blend_pallas.reduce_by_gaussian``)
+                              (``blend.reduce_by_gaussian``)
   [2] reduce sorted dropped   no counterpart
   [3] reduce scatter          no counterpart
   [4] pack gather fwd         packed_all[:, gid]
@@ -42,7 +42,7 @@ from neuralgaussiansplatting_torch import platform_device
 from neuralgaussiansplatting_torch.demo import demo_scene
 from neuralgaussiansplatting_torch.models import gaussians as gm
 from neuralgaussiansplatting_torch.ops import binning
-from neuralgaussiansplatting_torch.ops import blend_pallas
+from neuralgaussiansplatting_torch.ops import blend
 from neuralgaussiansplatting_torch.ops import blend_seq
 from neuralgaussiansplatting_torch.ops import preprocess as pp
 from neuralgaussiansplatting_torch.ops import rasterize as rast
@@ -86,7 +86,7 @@ def rows_for(params, state, cam, settings=SETTINGS):
             settings.chunk, pack_keys=True,
             packed_capacity=settings.packed_capacity, precise_cull=True,
             block_x=bx, block_y=by, width=cam.width, height=cam.height)
-        packed_all = blend_pallas.pack_instance_attrs_t(
+        packed_all = blend.pack_instance_attrs_t(
             pre.means2d, pre.conic, pre.opacity, pre.rgb)
         gid = inst.gid.long()
         packed = packed_all[:, gid].contiguous()
@@ -146,7 +146,7 @@ def rows_for(params, state, cam, settings=SETTINGS):
     rows = [
         ("seq bwd kernel", row(bwd_kernel), (cot, z)),
         ("reduce sorted",
-         row(lambda c: blend_pallas.reduce_by_gaussian(c, inst.gid, n)),
+         row(lambda c: blend.reduce_by_gaussian(c, inst.gid, n)),
          (cot9, z)),
         ("reduce sorted dropped", None, (cot9, z)),
         ("reduce scatter", None, (cot9, z)),

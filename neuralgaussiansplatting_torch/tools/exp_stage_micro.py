@@ -46,7 +46,7 @@ from neuralgaussiansplatting_torch.demo import demo_scene
 from neuralgaussiansplatting_torch.gaussian_renderer import render
 from neuralgaussiansplatting_torch.models import gaussians as gm
 from neuralgaussiansplatting_torch.ops import binning
-from neuralgaussiansplatting_torch.ops import blend_pallas
+from neuralgaussiansplatting_torch.ops import blend
 from neuralgaussiansplatting_torch.ops import preprocess as pp
 from neuralgaussiansplatting_torch.ops import rasterize as rast
 from neuralgaussiansplatting_torch.tools import _harness, _micro
@@ -67,7 +67,7 @@ NAME_WIDTH = 28
 NO_COUNTERPART = {
     "fwd+bwd scatter": "the XLA scatter-add gradient reduction is a TPU "
                        "variant; the port reduces per Gaussian one way "
-                       "(blend_pallas.reduce_by_gaussian)",
+                       "(blend.reduce_by_gaussian)",
 }
 
 
@@ -110,7 +110,7 @@ def rows_for(params, state, cam, settings) -> list:
             acc = _micro.sums(inst.gid, inst.tile_start, inst.tile_count,
                               inst.eid) + inst.num_rendered
             if with_pack:
-                packed_all = blend_pallas.pack_instance_attrs_t(
+                packed_all = blend.pack_instance_attrs_t(
                     pre.means2d, pre.conic, pre.opacity, pre.rgb)
                 acc = acc + _micro.sums(packed_all[:, inst.gid.long()])
             return acc

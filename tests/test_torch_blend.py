@@ -20,7 +20,7 @@ from neuralgaussiansplatting_tpu.ops import blend as jblend
 from neuralgaussiansplatting_tpu.ops import blend_seq as jseq
 from neuralgaussiansplatting_tpu.ops import binning as jbin
 from neuralgaussiansplatting_torch.ops import blend as tblend
-from neuralgaussiansplatting_torch.ops import blend_pallas as tpack
+from neuralgaussiansplatting_torch.ops import blend_pallas as tbp
 from neuralgaussiansplatting_torch.ops import blend_seq as tseq
 from neuralgaussiansplatting_torch.ops import rasterize as trast
 
@@ -61,7 +61,7 @@ def test_seq_plain_version_matches_jax_seq_kernel(scene):
         inst, attrs, t = _port_stage_inputs(120, 1, 3)
     else:
         inst, attrs, t = _port_stage_inputs(250, 0, 5, opacity=0.995)
-    got = tseq.blend_tiles_seq(inst, *attrs, t, t, 32, 32, 1024)
+    got = trast.blend_tiles(inst, *attrs, t, t, trast.make_settings("seq"))
     want = _jax_seq(*_as_jax(inst, attrs), t, t, 32, 32, 1024)
     _assert_blend_close(got, want)
     if scene == "early_stop":
@@ -81,9 +81,10 @@ def test_scan_oracle_matches_jax_scan():
 
 def test_seq_inference_mode_track_contrib_off():
     inst, attrs, t = _port_stage_inputs(80, 1, 11)
-    on = tseq.blend_tiles_seq(inst, *attrs, t, t, 32, 32, 1024)
-    off = tseq.blend_tiles_seq(inst, *attrs, t, t, 32, 32, 1024,
-                               track_contrib=False)
+    settings = trast.make_settings("seq")
+    on = trast.blend_tiles(inst, *attrs, t, t, settings)
+    off = trast.blend_tiles(inst, *attrs, t, t, dataclasses.replace(
+        settings, track_contrib=False))
     np.testing.assert_array_equal(off.color.numpy(), on.color.numpy())
     np.testing.assert_array_equal(off.final_t.numpy(), on.final_t.numpy())
     assert not off.n_contrib.any() and on.n_contrib.any()
@@ -91,8 +92,8 @@ def test_seq_inference_mode_track_contrib_off():
 
 def test_padding_slots_read_the_zero_sentinel():
     inst, attrs, _ = _port_stage_inputs(60, 1, 2)
-    packed = tpack.pack_gather(tpack.pack_instance_attrs_t(*attrs), inst.gid)
-    assert packed.shape == (tpack.PROWS, inst.gid.shape[0])
+    packed = tblend.pack_gather(tblend.pack_instance_attrs_t(*attrs), inst.gid)
+    assert packed.shape == (tblend.PROWS, inst.gid.shape[0])
     assert not packed[:, ~inst.valid].any()
     assert (packed[:, inst.valid] != 0).any(dim=1).all()
 
@@ -124,21 +125,28 @@ def test_unported_or_mismatched_backends_raise(backend, kw):
         assert torch.equal(a, b)
 
 
-def test_seq_blend_refuses_tensors_that_need_grad():
-    """The kernel wrappers refuse tensors that require grad (a launch would
-    drop the gradient); ``blend_tiles_seq``, their autograd entry, takes
-    them and gives every attribute a gradient."""
-    inst, attrs, t = _port_stage_inputs(40, 1, 4)
-    packed = tpack.pack_gather(tpack.pack_instance_attrs_t(*attrs), inst.gid)
+@pytest.mark.parametrize("backend", ["seq", "pallas"])
+def test_blend_refuses_tensors_that_need_grad(backend):
+    """The kernel wrappers (K1/K2, K4/K5) refuse tensors that require grad
+    (a launch would drop the gradient); ``rasterize.blend_tiles``, their
+    autograd entry, takes them and gives every attribute a gradient."""
+    if backend == "seq":
+        inst, attrs, t = _port_stage_inputs(40, 1, 4)
+        fwd, bwd, shape = tseq.blend_seq_fwd, tseq.blend_seq_bwd, ()
+    else:
+        inst, attrs, t = _port_stage_inputs(40, 1, 4, block=16, chunk=16)
+        fwd, bwd, shape = tbp.blend_pallas_fwd, tbp.blend_pallas_bwd, (16, 16)
+    packed = tblend.pack_gather(tblend.pack_instance_attrs_t(*attrs), inst.gid)
     args = (inst.tile_start, inst.tile_count)
-    raw = tseq.blend_seq_fwd(packed, *args, t)
+    raw = fwd(packed, *args, t, *shape)
     with pytest.raises(ValueError):
-        tseq.blend_seq_fwd(packed.clone().requires_grad_(), *args, t)
+        fwd(packed.clone().requires_grad_(), *args, t, *shape)
     with pytest.raises(ValueError):
-        tseq.blend_seq_bwd(packed, *args, raw.clone().requires_grad_(),
-                           torch.ones_like(raw), t)
+        bwd(packed, *args, raw.clone().requires_grad_(), torch.ones_like(raw),
+            t, *shape)
     leaves = [a.clone().requires_grad_() for a in attrs]
-    res = tseq.blend_tiles_seq(inst, *leaves, t, t, 32, 32, 1024)
+    res = trast.blend_tiles(inst, *leaves, t, t,
+                            trast.make_settings(backend))
     (res.color.sum() + res.final_t.sum()).backward()
     for leaf in leaves:
         assert leaf.grad is not None and leaf.grad.abs().sum() > 0
@@ -164,8 +172,8 @@ def test_alpha_floor_cutoff_never_skips_a_pair_that_blends():
     threshold every pair blends (``assert_cutoff_never_skips_a_blend``;
     tests/test_torch_cuda.py holds the kernels' own cutoff to the same
     sweep and to this one on the card)."""
-    ops, cut = assert_cutoff_never_skips_a_blend(tseq.alpha_floor_cutoff)
-    assert torch.equal(tseq.stage_cutoff_box(torch.cat([
+    ops, cut = assert_cutoff_never_skips_a_blend(tblend.alpha_floor_cutoff)
+    assert torch.equal(tblend.stage_cutoff_box(torch.cat([
         torch.zeros((5, ops.numel())), ops[None],
         torch.zeros((3, ops.numel()))]))[0], cut)
 
@@ -177,12 +185,12 @@ def test_instance_box_holds_every_pair_that_is_not_skipped():
     (``assert_box_holds_every_live_pair``; the card test holds the kernels'
     own box to the same sweep)."""
     splats = sweep_splats()
-    cut = tseq.alpha_floor_cutoff(splats[5])
-    box = tseq.instance_box(*splats)
+    cut = tblend.alpha_floor_cutoff(splats[5])
+    box = tblend.instance_box(*splats)
     assert_box_holds_every_live_pair(*splats, cut, box)
     packed = torch.cat([torch.stack(splats), torch.zeros((3, cut.numel()))])
-    assert torch.equal(tseq.stage_cutoff_box(packed), torch.cat([cut[None],
-                                                                 box]))
+    assert torch.equal(tblend.stage_cutoff_box(packed),
+                       torch.cat([cut[None], box]))
 
 
 def test_cutoff_and_box_hold_in_the_pallas_association():
@@ -192,27 +200,27 @@ def test_cutoff_and_box_hold_in_the_pallas_association():
     same float32 expression, so the cutoff sweep holds as it stands; the
     splat sweep holds the box with the power rounded in that association.
     An unknown association raises."""
-    assert_cutoff_never_skips_a_blend(tseq.alpha_floor_cutoff)
+    assert_cutoff_never_skips_a_blend(tblend.alpha_floor_cutoff)
     splats = sweep_splats()
-    cut = tseq.alpha_floor_cutoff(splats[5])
-    box = tseq.instance_box(*splats)
+    cut = tblend.alpha_floor_cutoff(splats[5])
+    box = tblend.instance_box(*splats)
     assert_box_holds_every_live_pair(*splats, cut, box, association="pallas")
     dx, dy = torch.tensor([3.0, -7.5]), torch.tensor([-1.25, 2.0])
     ca, cbc, cc = torch.tensor([0.3, 1e-3]), torch.tensor([0.1, -2e-4]), \
         torch.tensor([0.7, 5e-3])
-    assert torch.equal(tseq.blend_power(dx, dy, ca, cbc, cc, "pallas"),
+    assert torch.equal(tblend.blend_power(dx, dy, ca, cbc, cc, "pallas"),
                        -0.5 * ((ca * dx) * dx + (cc * dy) * dy)
                        - (cbc * dx) * dy)
     with pytest.raises(ValueError, match="association"):
-        tseq.blend_power(dx, dy, ca, cbc, cc, "xla")
+        tblend.blend_power(dx, dy, ca, cbc, cc, "xla")
 
 
 def test_stage_cutoff_box_validates_its_table():
     with pytest.raises(ValueError, match="float32"):
-        tseq.stage_cutoff_box(torch.zeros((8, 4)))
+        tblend.stage_cutoff_box(torch.zeros((8, 4)))
     with pytest.raises(ValueError, match="float32"):
-        tseq.stage_cutoff_box(torch.zeros((9, 4), dtype=torch.float64))
-    assert tseq.stage_cutoff_box(torch.zeros((9, 0))).shape == (5, 0)
+        tblend.stage_cutoff_box(torch.zeros((9, 4), dtype=torch.float64))
+    assert tblend.stage_cutoff_box(torch.zeros((9, 0))).shape == (5, 0)
 
 
 def test_expand_auto_is_the_scatter_expansion():

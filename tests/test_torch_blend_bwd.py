@@ -20,7 +20,7 @@ import pytest
 import torch
 
 from neuralgaussiansplatting_tpu.ops import blend_seq as jseq
-from neuralgaussiansplatting_torch.ops import blend_pallas as tpack
+from neuralgaussiansplatting_torch.ops import blend as tblend
 from neuralgaussiansplatting_torch.ops import blend_seq as tseq
 
 from torch_parity import port_stage_inputs
@@ -49,7 +49,7 @@ def _bwd_inputs(scene):
         inst, attrs, t = port_stage_inputs(250, 0, 5, opacity=0.995)
     else:
         inst, attrs, t = port_stage_inputs(120, 1, 3)
-    packed = tpack.pack_gather(tpack.pack_instance_attrs_t(*attrs), inst.gid)
+    packed = tblend.pack_gather(tblend.pack_instance_attrs_t(*attrs), inst.gid)
     return inst, packed, t
 
 
@@ -87,7 +87,7 @@ def test_k2_stops_at_the_deepest_contributor():
     contributor; those slots' gradients are exactly zero either way."""
     inst, attrs, t = port_stage_inputs(300, 0, 5, opacity=0.995,
                                        scale_lo=0.1, scale_hi=0.3)
-    packed = tpack.pack_gather(tpack.pack_instance_attrs_t(*attrs), inst.gid)
+    packed = tblend.pack_gather(tblend.pack_instance_attrs_t(*attrs), inst.gid)
     args = (inst.tile_start, inst.tile_count)
     raw = tseq.blend_seq_fwd(packed, *args, t)
     cot = torch.ones_like(raw)
@@ -142,7 +142,7 @@ def test_pack_gather_gradient_is_the_exact_per_gaussian_sum(drop):
     packed_all = torch.from_numpy(
         rng.normal(size=(9, n + 1)).astype(np.float32)).requires_grad_()
     cot9 = rng.normal(size=(9, k)).astype(np.float32)
-    out = tpack.pack_gather(packed_all, torch.from_numpy(gid).int())
+    out = tblend.pack_gather(packed_all, torch.from_numpy(gid).int())
     np.testing.assert_array_equal(out.detach().numpy(),
                                   packed_all.detach().numpy()[:, gid])
     out.backward(torch.from_numpy(cot9))
@@ -150,7 +150,7 @@ def test_pack_gather_gradient_is_the_exact_per_gaussian_sum(drop):
     np.testing.assert_allclose(packed_all.grad.numpy(), want, rtol=1e-5,
                                atol=1e-5)
     assert not packed_all.grad[:, n].any()
-    again = tpack.reduce_by_gaussian(torch.from_numpy(cot9),
-                                     torch.from_numpy(gid).int(), n)
+    again = tblend.reduce_by_gaussian(torch.from_numpy(cot9),
+                                      torch.from_numpy(gid).int(), n)
     np.testing.assert_array_equal(again.numpy(), packed_all.grad.numpy())
 

@@ -22,6 +22,7 @@ import pytest
 import torch
 
 from neuralgaussiansplatting_tpu.ops import blend_pallas as jbp
+from neuralgaussiansplatting_torch.ops import blend as tblend
 from neuralgaussiansplatting_torch.ops import blend_pallas as tbp
 from neuralgaussiansplatting_torch.ops import blend_seq as tseq
 
@@ -35,7 +36,8 @@ _STATIC = ("num_tiles", "ch", "block_x", "block_y", "tiles_x",
 
 def _pad16(packed9):
     return jnp.concatenate(
-        [packed9, jnp.zeros((16 - tbp.PROWS, packed9.shape[1]), jnp.float32)])
+        [packed9,
+         jnp.zeros((16 - tblend.PROWS, packed9.shape[1]), jnp.float32)])
 
 
 def _pad8(per_tile):
@@ -63,7 +65,7 @@ def _jax_bwd(packed9, raw, cot, tile_start, tile_count, *, num_tiles, ch,
         num_tiles=num_tiles, ch=ch, pix=block_x * block_y, block_x=block_x,
         block_y=block_y, tiles_x=tiles_x, interpret=True,
         track_contrib=track_contrib)
-    return grad[:tbp.PROWS]
+    return grad[:tblend.PROWS]
 
 
 def _inputs(scene, block, chunk):
@@ -73,7 +75,7 @@ def _inputs(scene, block, chunk):
     else:
         inst, attrs, t = port_stage_inputs(150, 1, 3, block=block,
                                            chunk=chunk)
-    packed = tbp.pack_gather(tbp.pack_instance_attrs_t(*attrs), inst.gid)
+    packed = tblend.pack_gather(tblend.pack_instance_attrs_t(*attrs), inst.gid)
     return inst, packed, t
 
 
@@ -127,7 +129,7 @@ def test_k5_plain_version_matches_jax_bwd_kernel(block, chunk, scene,
         block_x=block, block_y=block, tiles_x=t,
         track_contrib=track_contrib))
     valid = inst.valid.numpy()
-    for row in range(tbp.PROWS):
+    for row in range(tblend.PROWS):
         scale = np.abs(want[row, valid]).max()
         np.testing.assert_allclose(got[row, valid], want[row, valid],
                                    atol=5e-5 * scale, rtol=0,
@@ -141,7 +143,7 @@ def test_k5_stops_at_the_deepest_contributor():
     contributor; those slots' gradients are exactly zero either way."""
     inst, attrs, t = port_stage_inputs(300, 0, 5, opacity=0.995, block=16,
                                        chunk=8, scale_lo=0.1, scale_hi=0.3)
-    packed = tbp.pack_gather(tbp.pack_instance_attrs_t(*attrs), inst.gid)
+    packed = tblend.pack_gather(tblend.pack_instance_attrs_t(*attrs), inst.gid)
     args = (inst.tile_start, inst.tile_count)
     raw = tbp.blend_pallas_fwd(packed, *args, t, 16, 16)
     cot = torch.ones_like(raw)
@@ -162,7 +164,7 @@ def test_k5_stops_at_the_deepest_contributor():
 
 @pytest.mark.parametrize("block, chunk", [(16, 8), (32, 128), (8, 16)])
 def test_pair_counter_agrees_with_the_plain_versions(block, chunk):
-    """``blend_seq.blend_pair_counts``, the one counter behind the bounds of
+    """``blend.blend_pair_counts``, the one counter behind the bounds of
     K1, K2, K4 and K5: its visited and blended pairs are the plain K4's
     ``return_pairs`` counts (and the plain K5's blended pairs) at 16x16,
     32x32 and 8x8, and at 32x32 in K1's association the plain K1's. Each
@@ -176,7 +178,7 @@ def test_pair_counter_agrees_with_the_plain_versions(block, chunk):
     cot = torch.ones_like(raw)
     _, walked_flat, blended_bwd = tbp.blend_tiles_pallas_bwd_reference(
         *args[:3], raw, cot, t, block, block, return_pairs=True)
-    n = tseq.blend_pair_counts(*args, block, block, raw, "pallas")
+    n = tblend.blend_pair_counts(*args, block, block, raw, "pallas")
     assert (n["visited"], n["blended"]) == (visited, blended)
     assert blended_bwd == blended > 0
     assert n["walked"] == int(raw[:, 4].sum()) <= walked_flat
@@ -190,7 +192,7 @@ def test_pair_counter_agrees_with_the_plain_versions(block, chunk):
     if block == 32:
         raw1, visited1, blended1 = tseq.blend_tiles_seq_reference(
             *args, return_pairs=True)
-        n1 = tseq.blend_pair_counts(*args, 32, 32, raw1, "seq")
+        n1 = tblend.blend_pair_counts(*args, 32, 32, raw1, "seq")
         assert (n1["visited"], n1["blended"]) == (visited1, blended1)
 
 
@@ -219,24 +221,3 @@ def test_k4_k5_wrappers_validate_inputs():
     assert not out[:, [0, 1, 2, 4]].any()
     grad = tbp.blend_pallas_bwd(packed, start, start, out, out, 2, 16, 16)
     assert grad.shape == (9, 256) and not grad.any()
-
-
-def test_pallas_blend_refuses_tensors_that_need_grad():
-    """The kernel wrappers refuse tensors that require grad (a launch would
-    drop the gradient); ``blend_tiles``, their autograd entry, takes them
-    and gives every attribute a gradient."""
-    inst, attrs, t = port_stage_inputs(40, 1, 4, block=16, chunk=16)
-    packed = tbp.pack_gather(tbp.pack_instance_attrs_t(*attrs), inst.gid)
-    args = (inst.tile_start, inst.tile_count)
-    raw = tbp.blend_pallas_fwd(packed, *args, t, 16, 16)
-    with pytest.raises(ValueError):
-        tbp.blend_pallas_fwd(packed.clone().requires_grad_(), *args, t, 16,
-                             16)
-    with pytest.raises(ValueError):
-        tbp.blend_pallas_bwd(packed, *args, raw.clone().requires_grad_(),
-                             torch.ones_like(raw), t, 16, 16)
-    leaves = [a.clone().requires_grad_() for a in attrs]
-    res = tbp.blend_tiles(inst, *leaves, t, t, 16, 16, 1024, 16)
-    (res.color.sum() + res.final_t.sum()).backward()
-    for leaf in leaves:
-        assert leaf.grad is not None and leaf.grad.abs().sum() > 0

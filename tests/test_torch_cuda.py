@@ -23,6 +23,7 @@ from neuralgaussiansplatting_torch.models import gaussians as gm
 from neuralgaussiansplatting_torch.models import nets
 from neuralgaussiansplatting_torch.ops import _build
 from neuralgaussiansplatting_torch.ops import binning
+from neuralgaussiansplatting_torch.ops import blend
 from neuralgaussiansplatting_torch.ops.blend import ALPHA_MAX, ALPHA_MIN
 from neuralgaussiansplatting_torch.ops import blend_pallas
 from neuralgaussiansplatting_torch.ops import blend_seq
@@ -57,7 +58,7 @@ def test_build_targets_hopper_and_keys_on_source():
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert "--fmad=false" in _build.NVCC_FLAGS
     libs = set()
-    names = ("blend_seq_fwd", "blend_seq_bwd", "blend_seq_stage",
+    names = ("blend_seq_fwd", "blend_seq_bwd", "blend_stage",
              "zbuffer_fwd", "blend_pallas_fwd", "blend_pallas_bwd",
              "decode_runs", "mosaic_probe", "preprocess_fwd",
              "preprocess_bwd")
@@ -142,7 +143,7 @@ def assert_box_holds_every_live_pair(mx, my, ca, cbc, cc, op, cut, box,
     """A warp whose patch misses an instance's box skips the instance;
     that is exact only if every pixel outside the box computes (in
     float32, in the kernels' operation order: ``association`` "seq" for K1
-    and K2, "pallas" for K4 and K5, as ``blend_seq.blend_power`` rounds it,
+    and K2, "pallas" for K4 and K5, as ``blend.blend_power`` rounds it,
     on the tensors' device) a power below the cutoff. On the integer pixels
     just outside each edge of ``box`` (4, N), over every row (column) the
     ellipse spans, the power lies below ``cut``. The box is finite for most
@@ -166,15 +167,15 @@ def assert_box_holds_every_live_pair(mx, my, ca, cbc, cc, op, cut, box,
         p_axis = edges[:, :, None].expand(-1, -1, span.numel())
         p_other = other[:, None, :].expand(-1, edges.shape[1], -1)
         px, py = (p_axis, p_other) if axis == 0 else (p_other, p_axis)
-        power = blend_seq.blend_power(
+        power = blend.blend_power(
             mx[i, None, None] - px, my[i, None, None] - py,
             ca[i, None, None], cbc[i, None, None], cc[i, None, None],
             association)
         below = power < cut[i, None, None]
         assert below[outside].all(), axis
-    power = blend_seq.blend_power(mx[i] - torch.round(mx[i]),
-                                  my[i] - torch.round(my[i]), ca[i], cbc[i],
-                                  cc[i], association)
+    power = blend.blend_power(mx[i] - torch.round(mx[i]),
+                              my[i] - torch.round(my[i]), ca[i], cbc[i],
+                              cc[i], association)
     assert (power >= cut[i]).float().mean() > 0.5
 
 
@@ -182,18 +183,18 @@ def _stage_on_gpu(mx, my, ca, cbc, cc, op):
     """The kernels' own cutoff and box of these instances, on the card."""
     rest = torch.zeros((3, op.numel()))
     packed = torch.stack([mx, my, ca, cbc, cc, op, *rest]).cuda()
-    return blend_seq.stage_cutoff_box(packed)
+    return blend.stage_cutoff_box(packed)
 
 
 @pytest.mark.cuda
 def test_stage_cutoff_box_is_exact_on_gpu():
-    """The cutoff and box that K1, K2, K4 and K5 stage (``seq_cutoff``/
-    ``seq_box`` and ``stage_batch`` of csrc/blend_seq_common.cuh, through
-    csrc/blend_seq_stage.cu): the opacity sweep never skips a pair whose
+    """The cutoff and box that K1, K2, K4 and K5 stage (``alpha_cutoff``/
+    ``instance_box`` and ``stage_batch`` of csrc/blend_common.cuh, through
+    csrc/blend_stage.cu): the opacity sweep never skips a pair whose
     float32 alpha on the card reaches 1/255, the splat sweep's boxes hold
     every live pair with the power rounded on the card in K1/K2's and in
     K4/K5's association, and both agree with their PyTorch versions in
-    ops/blend_seq.py (the CPU tests' subject) to far below the margins:
+    ops/blend.py (the CPU tests' subject) to far below the margins:
     2^-18 (1 + |ln|) of the cutoff, 1/64 px plus 2^-18 of a box edge."""
     _need_gpu()
     zeros = lambda n: torch.zeros(n)
@@ -204,17 +205,17 @@ def test_stage_cutoff_box_is_exact_on_gpu():
                              zeros(n), ops.cpu())[0]
 
     ops, cut = assert_cutoff_never_skips_a_blend(cutoff, device="cuda")
-    want = blend_seq.alpha_floor_cutoff(ops.cpu())
+    want = blend.alpha_floor_cutoff(ops.cpu())
     tol = 2.0 ** -18 * (1.0 + want.abs())
     assert ((cut.cpu() - want).abs() <= tol).all()
 
     splats = sweep_splats()
     staged = _stage_on_gpu(*splats)
     cut, box = staged[0], staged[1:]
-    for association in blend_seq.ASSOCIATIONS:
+    for association in blend.ASSOCIATIONS:
         assert_box_holds_every_live_pair(*(v.cuda() for v in splats), cut,
                                          box, association)
-    want = blend_seq.instance_box(*splats)
+    want = blend.instance_box(*splats)
     box = box.cpu()
     assert torch.equal(torch.isinf(box), torch.isinf(want))
     fin = torch.isfinite(want)
@@ -239,7 +240,7 @@ def _bench_like_inputs(n, w, h, device="cuda", block=32, chunk=128,
                                  SETTINGS.max_per_tile, chunk, pack_keys=True,
                                  precise_cull=True, block_x=block,
                                  block_y=block_y, width=w, height=h)
-    packed = blend_pallas.pack_gather(blend_pallas.pack_instance_attrs_t(
+    packed = blend.pack_gather(blend.pack_instance_attrs_t(
         pre.means2d, pre.conic, pre.opacity, pre.rgb), inst.gid)
     return packed, inst, tiles_x
 
@@ -276,7 +277,7 @@ def test_k1_matches_plain_version_on_gpu():
                                  SETTINGS.max_per_tile, 128, pack_keys=True,
                                  precise_cull=True, block_x=32, block_y=32,
                                  width=256, height=256)
-    packed = blend_pallas.pack_gather(blend_pallas.pack_instance_attrs_t(
+    packed = blend.pack_gather(blend.pack_instance_attrs_t(
         pre.means2d, pre.conic, pre.opacity, pre.rgb), inst.gid)
     before = blend_seq.launches
     got = blend_seq.blend_seq_fwd(packed, inst.tile_start, inst.tile_count,

@@ -29,7 +29,7 @@ from neuralgaussiansplatting_tpu.ops import blend_seq as jblend_seq
 from neuralgaussiansplatting_tpu.ops import preprocess as jpp
 from neuralgaussiansplatting_torch import demo
 from neuralgaussiansplatting_torch.ops import binning
-from neuralgaussiansplatting_torch.ops import blend_pallas
+from neuralgaussiansplatting_torch.ops import blend
 from neuralgaussiansplatting_torch.tools import _micro
 from neuralgaussiansplatting_torch.tools import exp_binning_micro as tbin
 from neuralgaussiansplatting_torch.tools import exp_bwd_micro as tbwd
@@ -242,7 +242,7 @@ def test_binning_reduce_matches_jax_on_the_synthetic_rows():
     float32 rounding of the running prefix)."""
     n = 2000
     cot9, eid, gid = tbin.synthetic_rows(n, "cpu")
-    got = blend_pallas.reduce_by_gaussian(cot9, gid, n)[:, :n]
+    got = blend.reduce_by_gaussian(cot9, gid, n)[:, :n]
     rng = np.random.default_rng(0)
     rng.normal(size=(9, tbin.KCAP))
     rng.permutation(tbin.KEPT)

@@ -1,7 +1,6 @@
 """The port's neural training step (``neural_train_step``, sw 2) against a
 plain float32 PyTorch reference written from the fork's rules
-(``tests/neural_reference.py``, a copy of ``ngsbench/reference/neural.py``)
-on the CPU: full decoder widths, 64x64 pixels, 2000 Gaussians with seeded
+(``ngsbench/reference/neural.py``, the benchmark's) on the CPU: full decoder widths, 64x64 pixels, 2000 Gaussians with seeded
 features, seeded decoders.
 
 Tolerances, each with its reading on this scene (float32 port / bfloat16
@@ -23,11 +22,11 @@ decoders):
 import pytest
 import torch
 
-import neural_reference as ref
 from neuralgaussiansplatting_torch import demo
 from neuralgaussiansplatting_torch import gaussian_renderer as gr
 from neuralgaussiansplatting_torch.models import gaussians as gm
 from neuralgaussiansplatting_torch.train import neural_loop as nl
+from ngsbench.reference import neural as ref
 
 W = H = 64
 CAPACITY = 1 << 16
