@@ -5,16 +5,20 @@
 Builds every CUDA kernel of the port from csrc/ (K1, the 32x32 tile blend;
 K2, its backward; K3, the neural path's z-buffer; K4, the blend at any tile
 shape, 16x16 on the pallas path; K5, its backward; K6, the run-length
-decode; K7, the idiom probes; and the port's own preprocess pair, forward
-and backward), holds each against its plain PyTorch version at the shapes
-of its workload, then drives the paths as a user would.
+decode; K7, the idiom probes; and the port's own pairs, forward and
+backward, of preprocess and of the neural path's denoiser), holds each
+against its plain PyTorch version at the shapes of its workload, then
+drives the paths as a user would.
 
 Preprocess (first): both kernels against the plain version and its
 float64 run at the benchmark's garden size (5M Gaussians, 1297x840, SH 3)
 and at 800x800/100k, each timed per call beside the plain version and its
 bytes bound; every later phase goes through them. Then Adam: the kernel
 over garden's seven groups (615M floats) bit-equal to the plain version,
-timed beside it and its bytes bound.
+timed beside it and its bytes bound. Then the denoiser's pair at 800x800
+on the map as the CNN writes it: the forward bit-equal to the plain
+version, both gradients within 1e-5 of their scale, each timed beside the
+plain version and its bytes bound.
 
 Classic path (800x800, 100k Gaussians, SH degree 3, the bench rasterizer
 settings): a demo cloud saved to PLY, loaded back and rendered from four
@@ -145,6 +149,7 @@ from neuralgaussiansplatting_torch.ops import blend
 from neuralgaussiansplatting_torch.ops import blend_pallas
 from neuralgaussiansplatting_torch.ops import blend_seq
 from neuralgaussiansplatting_torch.ops import decode_runs
+from neuralgaussiansplatting_torch.ops import denoise as denoise_ops
 from neuralgaussiansplatting_torch.ops import idxmap as idxmap_ops
 from neuralgaussiansplatting_torch.ops import knn
 from neuralgaussiansplatting_torch.ops import preprocess as pp
@@ -518,7 +523,7 @@ def phase_build():
                          "zbuffer_fwd", "blend_pallas_fwd",
                          "blend_pallas_bwd", "decode_runs", "mosaic_probe",
                          "preprocess_fwd", "preprocess_bwd",
-                         "adam_update"])
+                         "adam_update", "denoise_fwd", "denoise_bwd"])
     print(f"build: {time.perf_counter() - t0:.1f} s "
           f"({', '.join(logs) or 'cached'})")
     for name, log in logs.items():
@@ -832,6 +837,99 @@ def phase_adam() -> dict:
     del params, state, grads
     torch.cuda.empty_cache()
     return row
+
+
+# The denoiser's kernels at the neural workload's 800x800, each input read
+# once and each output written once, in floats a pixel: forward the map's
+# 81 and the image's 3 read, the output's 3 written; backward the map, the
+# image and the cotangent read, the map's and the image's gradients
+# written. FP32 operations a pixel: forward 81 taps x 3 channels x (mul,
+# add); backward the map's gradient 81 x (3 mul, 2 add) and the image's
+# gather 81 x 3 x (mul, add) (the reflect fold's few adds not counted).
+DENOISE_FLOATS = {"denoise_fwd": 81 + 3 + 3, "denoise_bwd": 2 * 81 + 3 * 3}
+DENOISE_OPS = {"denoise_fwd": 81 * 3 * 2, "denoise_bwd": 81 * 5 + 81 * 3 * 2}
+
+
+def phase_denoise() -> dict:
+    """The denoiser's kernels through ``nets.denoise`` at 800x800, the
+    image and the map as the decoders hand them over (``nets._hwc`` views
+    of (1, C, H, W); the map's is the planes layout the kernels read): the
+    forward bit-equal to the plain version (``nets.denoise_reference``),
+    both gradients within SAME_CARD_REL of the largest |gradient| of
+    autograd through it, one launch each way; then each kernel's device
+    time (profiler, 20 calls) and back-to-back time (CUDA events), the
+    plain version's forward and backward, and the bounds. Returns the
+    kernels line's two rows."""
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    img = nets._hwc(torch.rand((1, 3, H, W), generator=gen, device="cuda"))
+    ker = nets._hwc(torch.randn((1, 81, H, W), generator=gen,
+                                device="cuda") * 0.2)
+    cot = torch.randn((H, W, 3), generator=gen, device="cuda")
+    check(denoise_ops.planes(ker) is ker,
+          "the CNN's map is not read in place as planes")
+
+    def graph(fn):
+        a = img.detach().requires_grad_()
+        b = ker.detach().requires_grad_()
+        return fn(a, b, 9), (a, b)
+
+    denoise_ops.launches = denoise_ops.bwd_launches = 0
+    out, inputs = graph(nets.denoise)
+    got = torch.autograd.grad(out, inputs, cot, retain_graph=True)
+    check((denoise_ops.launches, denoise_ops.bwd_launches) == (1, 1),
+          f"one denoiser call launched {denoise_ops.launches} forward and "
+          f"{denoise_ops.bwd_launches} backward kernels")
+    ref, ref_inputs = graph(nets.denoise_reference)
+    want = torch.autograd.grad(ref, ref_inputs, cot, retain_graph=True)
+    check(torch.equal(out, ref),
+          "the denoiser's forward is not the plain version's bits")
+    errs = []
+    for name, g, w in zip(("image", "map"), got, want):
+        scale = w.abs().max().item()
+        errs.append((g - w).abs().max().item())
+        check(errs[-1] <= SAME_CARD_REL * scale,
+              f"the denoiser's {name} gradient is {errs[-1]} off against a "
+              f"scale of {scale}")
+    check(got[1].permute(2, 0, 1).is_contiguous(),
+          "the map's gradient is not (81, H, W) planes")
+    del got, want
+
+    def fwd():
+        with torch.no_grad():
+            nets.denoise(img, ker)
+
+    def plain_fwd():
+        with torch.no_grad():
+            nets.denoise_reference(img, ker, 9)
+
+    calls = {"denoise_fwd": (fwd, plain_fwd, 0.0),
+             "denoise_bwd": (lambda: torch.autograd.grad(
+                 out, inputs, cot, retain_graph=True),
+                 lambda: torch.autograd.grad(ref, ref_inputs, cot,
+                                             retain_graph=True), max(errs))}
+    rows = {}
+    for name, (kernel, plain, err) in calls.items():
+        ms = device_ms(kernel, reps=20)
+        dispatch_ms = cuda_ms(kernel, reps=20, warmup=2)
+        plain_ms = cuda_ms(plain, reps=3)
+        nbytes = DENOISE_FLOATS[name] * 4 * H * W
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = DENOISE_OPS[name] * H * W / FP32_OPS_PER_S * 1e3
+        bound = max(t_bytes, t_ops)
+        print(f"{name} {W}x{H}: max |err| {err:.3g} (forward bit-equal to "
+              f"the plain version; gradients within {SAME_CARD_REL} of "
+              f"their scale); device time {ms:.4f} ms (profiler, 20 calls), "
+              f"back to back {dispatch_ms:.4f} ms (CUDA events), plain "
+              f"version {plain_ms:.4f} ms; bound {bound:.4f} ms by bytes "
+              f"({nbytes} B; {t_ops:.4f} ms by operations), "
+              f"{100 * bound / ms:.1f} % of it")
+        rows[name] = kernel_row(
+            name, f"{name}.cu", "none: the JAX package's denoise is 81 "
+            "shifted slices, which XLA fuses", err, ms, dispatch_ms,
+            plain_ms, t_bytes, t_ops)
+    del out, ref, inputs, ref_inputs
+    torch.cuda.empty_cache()
+    return rows
 
 
 def pair_ops(kernel, blend_ops, tile, association):
@@ -2450,9 +2548,10 @@ def phase_neural_serve(params, state):
     report_profile(prof, wall_ms, n_renders, "render2")
 
 
-def phase_neural_train(params, state):
+def phase_neural_train(params, state, rows):
     """10 ``NeuralTrainer(sw=2)`` steps towards the classic render (K1) of
-    the same cloud. Returns K3's launches in them."""
+    the same cloud. Puts the launches of K3 and of the denoiser's pair in
+    them into ``rows``."""
     cam = demo.demo_camera(W, H)
     with torch.no_grad():
         gt = render(cam, params, state.alive, NEURAL_SH,
@@ -2464,6 +2563,7 @@ def phase_neural_train(params, state):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     zbuffer_pallas.launches = optim.launches = 0
+    denoise_ops.launches = denoise_ops.bwd_launches = 0
     step_ms, metrics = [], []
     for _ in range(NEURAL_STEPS):
         t0 = time.perf_counter()
@@ -2473,6 +2573,10 @@ def phase_neural_train(params, state):
     launches = zbuffer_pallas.launches
     check(launches == NEURAL_STEPS,
           f"{NEURAL_STEPS} steps launched K3 {launches} times")
+    for name, count in (("forward", denoise_ops.launches),
+                        ("backward", denoise_ops.bwd_launches)):
+        check(count == NEURAL_STEPS, f"{NEURAL_STEPS} steps launched the "
+              f"denoiser's {name} kernel {count} times")
     # the features in one launch, the decoders' leaves in MAX_GROUPS a
     # launch
     n_leaves = len(neural_loop.decoder_leaves(trainer.ts.net_params))
@@ -2495,7 +2599,8 @@ def phase_neural_train(params, state):
           f"last 3 {last}")
     step = statistics.median(step_ms[2:])
     peak = torch.cuda.max_memory_allocated() / 2**30
-    print(f"neural train: NeuralTrainer(sw=2), K3 {launches} and Adam "
+    print(f"neural train: NeuralTrainer(sw=2), K3 {launches}, denoiser "
+          f"{denoise_ops.launches} + {denoise_ops.bwd_launches} and Adam "
           f"{optim.launches} launches in {NEURAL_STEPS} steps; loss {loss[0]:.5f} -> {loss[-1]:.5f} (mean "
           f"of first 3 {first:.5f}, last 3 {last:.5f}); psnr "
           f"{metrics[0]['psnr'].item():.3f} -> "
@@ -2504,7 +2609,9 @@ def phase_neural_train(params, state):
     print(f"neural train timing: median step {step:.3f} ms (host clock, "
           f"synchronised, {NEURAL_STEPS - 2} steps), {W * H / step / 1e3:.3f} "
           f"Mpix/s; peak memory {peak:.2f} GiB")
-    return launches
+    rows["K3"]["launches"] = launches
+    rows["denoise_fwd"]["launches"] = denoise_ops.launches
+    rows["denoise_bwd"]["launches"] = denoise_ops.bwd_launches
 
 
 def k6_bound(starts, domain):
@@ -3578,23 +3685,16 @@ def same_run(a, b) -> bool:
         torch.equal(a[1][k], b[1][k]) for k in a[1])
 
 
-def unpinned_reflect_pad(x, pad):
-    """The denoiser's padding before the fix: ``F.pad``'s reflect, whose
-    CUDA backward adds with atomics."""
-    return torch.nn.functional.pad(x.permute(2, 0, 1), (pad,) * 4,
-                                   mode="reflect").permute(1, 2, 0)
-
-
 def phase_neural_repeat(params, state):
     """Neural runs repeat to the bit: two ``NeuralTrainer(sw=2)`` runs of
     NEURAL_REPEAT_SHORT steps from the same seed, then two of
     NEURAL_REPEAT_LONG steps over eight orbit cameras with the caching
     allocator's state changed between them, must give bit-equal losses,
     decoders and features. Between the long pinned runs run two with the
-    step unpinned (cuDNN's default algorithm choice and ``F.pad``'s
-    reflect, patched in here): their step time is the fix's cost, and
-    whether they repeat is printed. Returns K3's launches in the pinned
-    runs."""
+    step unpinned (cuDNN's default algorithm choice, patched in here; the
+    denoiser's kernels add in one order either way): their step time is
+    the pin's cost, and whether they repeat is printed. Returns K3's
+    launches in the pinned runs."""
     cams = [demo.demo_camera(W, H, 2 * math.pi * i / 8) for i in range(8)]
     with torch.no_grad():
         gts = [render(c, params, state.alive, NEURAL_SH,
@@ -3612,14 +3712,13 @@ def phase_neural_repeat(params, state):
           f"the repeat runs launched K3 {launches} times")
     big = torch.empty(20 << 30, dtype=torch.uint8, device="cuda")
     del big
-    saved = neural_loop.deterministic_cudnn, nets._reflect_pad
+    saved = neural_loop.deterministic_cudnn
     neural_loop.deterministic_cudnn = contextlib.nullcontext
-    nets._reflect_pad = unpinned_reflect_pad
     try:
         unpinned = [neural_runs(params, state, cams, gts, NEURAL_REPEAT_LONG)
                     for _ in range(2)]
     finally:
-        neural_loop.deterministic_cudnn, nets._reflect_pad = saved
+        neural_loop.deterministic_cudnn = saved
     zbuffer_pallas.launches = 0
     pinned.append(neural_runs(params, state, cams, gts, NEURAL_REPEAT_LONG))
     launches += zbuffer_pallas.launches
@@ -3859,6 +3958,7 @@ def main():
     params, state, _ = demo.demo_scene(n=N, w=W, h=H, sh_degree=SH_DEGREE)
     rows = phase_preprocess(params, state)
     rows["adam_update"] = phase_adam()
+    rows.update(phase_denoise())
     rows.update(K1=phase_k1_parity(params, state),
                 K2=phase_k2_parity(params, state))
     phase_small_reference()
@@ -3906,7 +4006,7 @@ def main():
     rows["K3"] = phase_k3_parity(nparams, nstate)
     phase_small_neural_reference()
     phase_neural_serve(nparams, nstate)
-    rows["K3"]["launches"] = phase_neural_train(nparams, nstate)
+    phase_neural_train(nparams, nstate, rows)
     rows["K3"]["repeat_launches"] = phase_neural_repeat(nparams, nstate)
     del nparams, nstate
     torch.cuda.empty_cache()

@@ -3,7 +3,8 @@
 Port of ``models/nets.py`` (the Flax modules of the reference's
 ``utils/net_utils.py``): ``FeatureToRGBMLP``, ``DoubleConv``, ``UNet``,
 ``SmallUNet``, ``CNN`` (the 81-channel dynamic-kernel predictor),
-``PureCNN``, and the parameter-free dynamic 9x9 filter ``denoise``.
+``PureCNN``, and the parameter-free dynamic 9x9 filter ``denoise`` (one
+CUDA kernel each way on the card, ``ops/denoise``).
 
 Each module takes one (H, W, C) image and returns (H, W, out) float32, the
 JAX call contract; inside, the convolutions run on (1, C, H, W) tensors (a
@@ -28,6 +29,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from neuralgaussiansplatting_torch.ops import denoise as denoise_ops
 
 NUM_FEATURES = 64
 
@@ -195,18 +198,37 @@ def denoise(unet_out: torch.Tensor, cnn_out: torch.Tensor,
             kernel_size: int = 9) -> torch.Tensor:
     """Dynamic per-pixel filtering (the reference's Denoiser).
 
-    ``unet_out`` (H, W, 3) is reflect-padded and each pixel's k x k window
-    is weighted by its kernel in ``cnn_out`` (H, W, k*k), tap i = ky*k + kx
-    (torch-unfold order); the taps are added one by one in that order, as
-    the JAX package adds them.
+    ``unet_out`` (H, W, 3) is reflect-padded by k // 2 (< H, W) and each
+    pixel's k x k window is weighted by its kernel in ``cnn_out``
+    (H, W, k*k), tap i = ky*k + kx (torch-unfold order); the taps are added
+    one by one in that order, as the JAX package adds them.
+
+    On a CUDA device it runs one kernel each way (``ops/denoise``), whose
+    forward gives the plain version's bits; there the image and map must be
+    float32 on one device and k = 9, else ``ValueError``. CPU tensors run
+    the plain version, ``denoise_reference``.
     """
     h, w, c = unet_out.shape
     if c != 3:
         raise ValueError(f"denoise takes an (H, W, 3) image, got "
                          f"{tuple(unet_out.shape)}")
     k = kernel_size
-    img = _reflect_pad(unet_out, k // 2)
+    if k // 2 >= min(h, w):
+        raise ValueError(f"a {k}x{k} denoiser's reflect padding needs H and "
+                         f"W above {k // 2}, got {h}x{w}")
     kernels = cnn_out.reshape(h, w, k * k)
+    if unet_out.is_cuda or kernels.is_cuda:
+        return denoise_ops.denoise(unet_out, kernels, k)
+    return denoise_reference(unet_out, kernels, k)
+
+
+def denoise_reference(unet_out: torch.Tensor, kernels: torch.Tensor,
+                      k: int) -> torch.Tensor:
+    """Plain PyTorch version of ``denoise``, on any device: ``kernels``
+    (H, W, k*k), k // 2 < H, W; the taps added one by one, differentiated
+    by autograd."""
+    h, w = unet_out.shape[:2]
+    img = _reflect_pad(unet_out, k // 2)
     out = torch.zeros_like(unet_out)
     for i in range(k * k):
         dy, dx = divmod(i, k)

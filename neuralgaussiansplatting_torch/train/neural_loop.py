@@ -11,9 +11,11 @@ Under a profiler the step opens the spans "ngs.step" (``NeuralTrainer.step``),
 the render's (``gaussian_renderer.render1/2/3``), "ngs.loss", "ngs.backward"
 and "ngs.optimizer" (``neural_train_step``).
 
-The step's only kernel is K3, in the z-buffer; it has no backward. The
-features' gradient comes from the winner-row gather's exact per-Gaussian
-sum, the decoders' from their convolutions' own backward.
+The step's hand-written kernels: K3 in the z-buffer, which has no
+backward; the denoiser's pair (``ops/denoise``), one launch each way; and
+the Adam kernel, three launches. The features' gradient comes from the
+winner-row gather's exact per-Gaussian sum, the decoders' from their
+convolutions' own backward.
 
 The decoders are ``nn.Module``s and the step updates their parameters in
 place (a copy of each updated tensor into it); ``features`` is replaced,
@@ -22,8 +24,9 @@ as the JAX step replaces every leaf.
 A step repeats bit for bit from the same state on the card: its forward
 and backward run with cuDNN restricted to deterministic algorithms (the
 decoders' weight gradients otherwise may take ones that add with atomics),
-and the denoiser's reflect padding has a deterministic backward
-(``nets._reflect_pad``). TF32 stays as PyTorch sets it (deterministic).
+and the denoiser's backward kernel adds in a fixed order without atomics
+(as the plain version's reflect padding, ``nets._reflect_pad``, does).
+TF32 stays as PyTorch sets it (deterministic).
 """
 
 from __future__ import annotations

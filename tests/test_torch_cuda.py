@@ -61,7 +61,7 @@ def test_build_targets_hopper_and_keys_on_source():
     names = ("blend_seq_fwd", "blend_seq_bwd", "blend_stage",
              "zbuffer_fwd", "blend_pallas_fwd", "blend_pallas_bwd",
              "decode_runs", "mosaic_probe", "preprocess_fwd",
-             "preprocess_bwd")
+             "preprocess_bwd", "adam_update", "denoise_fwd", "denoise_bwd")
     for name in names:
         src, lib = _build._target(name)
         assert os.path.exists(src)

@@ -8,6 +8,8 @@ rtol 1e-4, atol 1e-5 (float32 convolutions that sum in another order);
 ``render1/2/3`` are compared in ``tests/test_torch_neural_render.py``.
 """
 
+from types import SimpleNamespace
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -20,6 +22,7 @@ from neuralgaussiansplatting_tpu.ops import idxmap as jidx
 from neuralgaussiansplatting_tpu.ops import zbuffer_pallas as jz
 from neuralgaussiansplatting_torch import gaussian_renderer as tgr
 from neuralgaussiansplatting_torch.models import nets as tnets
+from neuralgaussiansplatting_torch.ops import denoise as tdn
 from neuralgaussiansplatting_torch.ops import idxmap as tidx
 
 from scenes import make_camera, random_gaussians
@@ -152,6 +155,71 @@ def test_denoise_matches_jax():
     centre[..., 40] = 1.0
     assert torch.equal(tnets.denoise(to_torch(img), to_torch(centre)),
                        to_torch(img))
+
+
+@pytest.mark.parametrize("h,w", [(12, 20), (5, 9)], ids=["12x20", "5x9"])
+def test_denoise_gradients_match_jax(h, w):
+    """Both gradients of the plain version (autograd through its taps and
+    its reflect padding) against ``jax.vjp`` of the JAX ``denoise``: at
+    test_denoise_matches_jax's size, and at H = 5, the smallest height a
+    9x9 window's reflect padding allows, where rows reflect from both
+    edges."""
+    rng = np.random.default_rng(6)
+    img = rng.random((h, w, 3)).astype(np.float32)
+    kernels = rng.normal(size=(h, w, 81)).astype(np.float32)
+    cot = rng.normal(size=(h, w, 3)).astype(np.float32)
+    _, vjp = jax.vjp(jnets.denoise, jnp.asarray(img), jnp.asarray(kernels))
+    want = jax.jit(vjp)(jnp.asarray(cot))
+    ti = to_torch(img).requires_grad_()
+    tk = to_torch(kernels).requires_grad_()
+    got = torch.autograd.grad(tnets.denoise(ti, tk), (ti, tk),
+                              to_torch(cot))
+    for name, g, want_g in zip(("image", "map"), got, want):
+        want_g = np.asarray(want_g)
+        np.testing.assert_allclose(g.numpy(), want_g, rtol=1e-4,
+                                   atol=1e-5 * np.abs(want_g).max(),
+                                   err_msg=name)
+
+
+def test_denoise_takes_the_kernels_by_input_alone():
+    """The route is decided from the device: a CUDA input takes the
+    kernels, which accept float32 on one CUDA device at k = 9 and raise
+    ``ValueError`` for anything else (judged here on stand-ins, as the CPU
+    has no card); CPU tensors run the plain version and launch nothing. The
+    map goes to the kernels as planes, as the CNN writes them: that view as
+    it is, any other layout copied."""
+    def like(device, dtype=torch.float32):
+        return SimpleNamespace(device=torch.device(device), dtype=dtype)
+
+    cuda = like("cuda:0")
+    tdn.check_inputs(cuda, cuda, 9)
+    refused = [(cuda, cuda, k) for k in (3, 7, 8, 11)] + [
+        (cuda, like("cuda:1"), 9), (like("cpu"), cuda, 9),
+        (cuda, like("cpu"), 9), (like("cpu"), like("cpu"), 9),
+        (like("cuda:0", torch.float64), cuda, 9),
+        (cuda, like("cuda:0", torch.bfloat16), 9)]
+    for img, ker, k in refused:
+        with pytest.raises(ValueError):
+            tdn.check_inputs(img, ker, k)
+
+    rng = np.random.default_rng(7)
+    img = to_torch(rng.random((12, 20, 3)).astype(np.float32))
+    conv_out = to_torch(rng.normal(size=(1, 81, 12, 20)).astype(np.float32))
+    kernels = tnets._hwc(conv_out)
+    assert tdn.planes(kernels) is kernels
+    hwc = kernels.contiguous()
+    as_planes = tdn.planes(hwc)
+    assert as_planes.stride() == kernels.stride()
+    assert torch.equal(as_planes, hwc)
+
+    tdn.launches = tdn.bwd_launches = 0
+    ti = img.clone().requires_grad_()
+    out = tnets.denoise(ti, kernels)
+    out.sum().backward()
+    assert (tdn.launches, tdn.bwd_launches) == (0, 0)
+    assert torch.equal(out, tnets.denoise_reference(img, kernels, 9))
+    with pytest.raises(ValueError, match="reflect padding"):
+        tnets.denoise(img[:4], kernels[:4])
 
 
 def test_init_decoders_widths_and_statistics():
