@@ -569,6 +569,95 @@ def preprocess_bytes(n: int, deg: int, offset: bool) -> tuple[int, int]:
     return 4 * n * fwd, 4 * n * bwd
 
 
+# the colour variant (precomputed colours, as Scaffold-GS renders): garden's
+# 5M Gaussians and scaffold840's 8M candidates, at 1297x840
+COLOR_WORKLOADS = (5_000_000, 8_000_000)
+
+
+def preprocess_colors(n: int) -> tuple[dict, dict]:
+    """The preprocess kernels' colour variant on ``n`` garden-drawn
+    Gaussians at 1297x840 (32x32 tiles, tight, no offset): its forward equal
+    to the SH variant's, bit for bit, in every field but the colour, which
+    is the input tensor itself; the colours' gradient the upstream one; two
+    backward launches bit-equal; then the device time (profiler, 20 calls),
+    back-to-back time (CUDA events), the plain version's and the bytes
+    bound of each way (forward 23 floats a Gaussian, backward 25: no SH and
+    no colour read or written). Returns the (forward, backward) workload
+    entries."""
+    w, h = 1297, 840
+    inputs, cam = garden_preprocess_inputs(n, w, h, seed=7)
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    colors = torch.rand((n, 3), device="cuda", generator=gen)
+    leaves = ("means3d", "scales", "rotations")
+    made = {k: v.detach().clone().requires_grad_() if k in leaves
+            else v.detach() for k, v in inputs.items()}
+    col = colors.clone().requires_grad_()
+
+    def call(fn, colored=True, grad=True):
+        with torch.set_grad_enabled(grad):
+            return fn(made["means3d"], made["scales"], made["rotations"],
+                      made["opacities"], made["shs"], SH_DEGREE, cam, 32, 32,
+                      tight=True, colors_precomp=col if colored else None)
+
+    with torch.no_grad():
+        sh = call(pp.preprocess_gaussians, colored=False)
+    f0, b0 = pp.launches, pp.bwd_launches
+    pre = call(pp.preprocess_gaussians)
+    same = all(torch.equal(getattr(pre, f), getattr(sh, f)) for f in (
+        "means2d", "depths", "radii", "conic", "rect_min", "rect_max",
+        "tiles_touched"))
+    check(same and pre.rgb is col, f"preprocess colour variant ({n}): its "
+          "geometry is not the SH variant's bits, or the colours do not "
+          "pass through")
+    live = (pre.radii > 0)[:, None]
+    cot = [torch.where(live, torch.randn((n, c), device="cuda",
+                                         generator=gen) * sc, 0.0)
+           for c, sc in ((2, 1e-2), (3, 1e-1), (3, 1.0))]
+    outs = [pre.means2d, pre.conic, pre.rgb]
+    wrt = [made[k] for k in leaves] + [col]
+    g1 = torch.autograd.grad(outs, wrt, cot, retain_graph=True)
+    g2 = torch.autograd.grad(outs, wrt, cot, retain_graph=True)
+    check((pp.launches - f0, pp.bwd_launches - b0) == (1, 2),
+          f"preprocess colour variant ({n}): launches "
+          f"{(pp.launches - f0, pp.bwd_launches - b0)}, not (1, 2)")
+    check(all(torch.equal(a, b) for a, b in zip(g1, g2))
+          and torch.equal(g1[3], cot[2]), f"preprocess colour variant "
+          f"({n}): two backward launches differ, or the colours' gradient "
+          "is not the upstream one")
+    del sh, g1, g2
+    plain = pp.preprocess_gaussians_reference
+
+    def bwd(fn_outs):
+        return lambda: torch.autograd.grad(fn_outs, wrt, cot,
+                                           retain_graph=True)
+
+    out = []
+    for kernel, fn, plain_fn, floats in (
+            ("preprocess_fwd", lambda: call(pp.preprocess_gaussians,
+                                            grad=False),
+             lambda: call(plain, grad=False), 23),
+            ("preprocess_bwd", bwd(outs), None, 25)):
+        if plain_fn is None:
+            p = call(plain)
+            plain_fn = bwd([p.means2d, p.conic, p.rgb])
+        ms = device_ms(fn, reps=20)
+        dispatch_ms = cuda_ms(fn, reps=20, warmup=2)
+        plain_ms = cuda_ms(plain_fn, reps=3)
+        bound_ms = 4 * floats * n / HBM_BYTES_PER_S * 1e3
+        print(f"{kernel} colours {n}: {n} Gaussians at {w}x{h}, precomputed "
+              f"colours, tight: device time per call (profiler, 20 calls) "
+              f"{ms:.4f} ms, back-to-back calls (CUDA events) "
+              f"{dispatch_ms:.4f} ms, plain version {plain_ms:.4f} ms; bound "
+              f"{bound_ms:.4f} ms by bytes ({4 * floats * n} B), "
+              f"{100 * bound_ms / ms:.1f} % of it")
+        out.append({"workload": f"colors {n}", "gaussians": n, "width": w,
+                    "height": h, "ms": ms, "dispatch_ms": dispatch_ms,
+                    "plain_ms": plain_ms, "bound_ms": bound_ms})
+    del pre, outs, made, col, cot, inputs
+    torch.cuda.empty_cache()
+    return tuple(out)
+
+
 def garden_preprocess_inputs(n: int, w: int, h: int, seed: int = 3):
     """``n`` Gaussians drawn on the card from ``seed``: means in the cube the
     demo scene fills, log-normal scales, random quaternions and opacities,
@@ -744,6 +833,10 @@ def phase_preprocess(params, state) -> dict:
         del got, want, pre_k, pre_p, outs_k, outs_p, gk, again, gp, inputs
         del plain_in
         torch.cuda.empty_cache()
+    for n in COLOR_WORKLOADS:
+        for kernel, got in zip(("preprocess_fwd", "preprocess_bwd"),
+                               preprocess_colors(n)):
+            per[kernel].append(got)
     rows = {}
     for kernel, source in (("preprocess_fwd", "preprocess_fwd.cu"),
                            ("preprocess_bwd", "preprocess_bwd.cu")):

@@ -23,6 +23,10 @@ namespace preprocess {
 
 constexpr int kRows = 128;  // Gaussians per block, one per thread
 constexpr int kCam = 35;    // view (16), full_proj (16), campos (3)
+// The degree that instantiates the kernels for precomputed colours: no SH
+// read, no colour written, no SH gradient (the colours are the rgb output
+// itself, as the opacity is)
+constexpr int kColors = -1;
 
 // The float32 values of ops/sh.py's constants.
 constexpr float kC0 = 0.28209479177387814f;
@@ -452,14 +456,17 @@ __device__ __forceinline__ void forward_row(const float* m, const float* sc,
     tiles = valid ? (rmax_x - rmin_x) * (rmax_y - rmin_y) : 0;
   }
 
-  // sh.sh_to_rgb_color: eval_sh + 0.5, clamped at 0
-  const Direction dr = direction(m, cam);
-  float b[16];  // the first (DEG + 1)^2 are used
-  sh_basis<DEG>(dr.x, dr.y, dr.z, b);
-  float col[3];
+  // sh.sh_to_rgb_color: eval_sh + 0.5, clamped at 0 (none with
+  // precomputed colours, DEG = kColors: they pass through)
+  float col[3] = {0.f, 0.f, 0.f};
+  if constexpr (DEG >= 0) {
+    const Direction dr = direction(m, cam);
+    float b[16];  // the first (DEG + 1)^2 are used
+    sh_basis<DEG>(dr.x, dr.y, dr.z, b);
 #pragma unroll
-  for (int ch = 0; ch < 3; ++ch) {
-    col[ch] = t_clamp_min(sh_channel<DEG>(b, sh, ch) + 0.5f, 0.f);
+    for (int ch = 0; ch < 3; ++ch) {
+      col[ch] = t_clamp_min(sh_channel<DEG>(b, sh, ch) + 0.5f, 0.f);
+    }
   }
 
   o.means2d = make_float2(x, y);
@@ -641,61 +648,64 @@ __device__ __forceinline__ void backward_row(const float* m, const float* sc,
     g_rot[k] = g_q[k] / cv.qnorm + g_qsq * (2.f * q_in[k]);
   }
 
-  // -- rgb = clamp_min(eval_sh(dirs) + 0.5, 0)
-  const Direction dr = direction(m, cam);
-  float b[16];
-  sh_basis<DEG>(dr.x, dr.y, dr.z, b);
-  float g_res[3];
-#pragma unroll
-  for (int ch = 0; ch < 3; ++ch) {
-    const float pre = sh_channel<DEG>(b, sh, ch) + 0.5f;
-    g_res[ch] = pre >= 0.f ? gr[ch] : 0.f;
-  }
-  float G[K];  // d loss / d b_l
-#pragma unroll
-  for (int l = 0; l < K; ++l) {
-    const float sg = (l == 1 || l == 3) ? -1.f : 1.f;
-    G[l] = sg * ((g_res[0] * sh[3 * l] + g_res[1] * sh[3 * l + 1]) +
-                 g_res[2] * sh[3 * l + 2]);
+  // -- rgb = clamp_min(eval_sh(dirs) + 0.5, 0); precomputed colours
+  // (DEG = kColors) take the upstream gradient as it is, outside the kernel
+  if constexpr (DEG >= 0) {
+    const Direction dr = direction(m, cam);
+    float b[16];
+    sh_basis<DEG>(dr.x, dr.y, dr.z, b);
+    float g_res[3];
 #pragma unroll
     for (int ch = 0; ch < 3; ++ch) {
-      sh[3 * l + ch] = sg * (b[l] * g_res[ch]);  // its own row only
+      const float pre = sh_channel<DEG>(b, sh, ch) + 0.5f;
+      g_res[ch] = pre >= 0.f ? gr[ch] : 0.f;
     }
-  }
-  if (DEG > 0) {
-    const float x = dr.x, y = dr.y, z = dr.z;
-    float gx = kC1 * G[3], gy = kC1 * G[1], gz = kC1 * G[2];
-    if (DEG > 1) {
-      const float xx = x * x, yy = y * y, zz = z * z;
-      gx += kC2_0 * y * G[4] - 2.f * kC2_2 * x * G[6] + kC2_3 * z * G[7] +
-            2.f * kC2_4 * x * G[8];
-      gy += kC2_0 * x * G[4] + kC2_1 * z * G[5] - 2.f * kC2_2 * y * G[6] -
-            2.f * kC2_4 * y * G[8];
-      gz += kC2_1 * y * G[5] + 4.f * kC2_2 * z * G[6] + kC2_3 * x * G[7];
-      if (DEG > 2) {
-        gx += 6.f * kC3_0 * x * y * G[9] + kC3_1 * y * z * G[10] -
-              2.f * kC3_2 * x * y * G[11] - 6.f * kC3_3 * x * z * G[12] +
-              kC3_4 * (4.f * zz - 3.f * xx - yy) * G[13] +
-              2.f * kC3_5 * x * z * G[14] + 3.f * kC3_6 * (xx - yy) * G[15];
-        gy += 3.f * kC3_0 * (xx - yy) * G[9] + kC3_1 * x * z * G[10] +
-              kC3_2 * (4.f * zz - xx - 3.f * yy) * G[11] -
-              6.f * kC3_3 * y * z * G[12] - 2.f * kC3_4 * x * y * G[13] -
-              2.f * kC3_5 * y * z * G[14] - 6.f * kC3_6 * x * y * G[15];
-        gz += kC3_1 * x * y * G[10] + 8.f * kC3_2 * y * z * G[11] +
-              kC3_3 * (6.f * zz - 3.f * xx - 3.f * yy) * G[12] +
-              8.f * kC3_4 * x * z * G[13] + kC3_5 * (xx - yy) * G[14];
+    float G[K];  // d loss / d b_l
+#pragma unroll
+    for (int l = 0; l < K; ++l) {
+      const float sg = (l == 1 || l == 3) ? -1.f : 1.f;
+      G[l] = sg * ((g_res[0] * sh[3 * l] + g_res[1] * sh[3 * l + 1]) +
+                   g_res[2] * sh[3 * l + 2]);
+#pragma unroll
+      for (int ch = 0; ch < 3; ++ch) {
+        sh[3 * l + ch] = sg * (b[l] * g_res[ch]);  // its own row only
       }
     }
-    // dirs = d / sqrt(clamp_min(|d|^2, 1e-16))
-    const float g_dir[3] = {gx, gy, gz};
-    const float dirs[3] = {dr.x, dr.y, dr.z};
-    float g_n = 0.f;
+    if (DEG > 0) {
+      const float x = dr.x, y = dr.y, z = dr.z;
+      float gx = kC1 * G[3], gy = kC1 * G[1], gz = kC1 * G[2];
+      if (DEG > 1) {
+        const float xx = x * x, yy = y * y, zz = z * z;
+        gx += kC2_0 * y * G[4] - 2.f * kC2_2 * x * G[6] + kC2_3 * z * G[7] +
+              2.f * kC2_4 * x * G[8];
+        gy += kC2_0 * x * G[4] + kC2_1 * z * G[5] - 2.f * kC2_2 * y * G[6] -
+              2.f * kC2_4 * y * G[8];
+        gz += kC2_1 * y * G[5] + 4.f * kC2_2 * z * G[6] + kC2_3 * x * G[7];
+        if (DEG > 2) {
+          gx += 6.f * kC3_0 * x * y * G[9] + kC3_1 * y * z * G[10] -
+                2.f * kC3_2 * x * y * G[11] - 6.f * kC3_3 * x * z * G[12] +
+                kC3_4 * (4.f * zz - 3.f * xx - yy) * G[13] +
+                2.f * kC3_5 * x * z * G[14] + 3.f * kC3_6 * (xx - yy) * G[15];
+          gy += 3.f * kC3_0 * (xx - yy) * G[9] + kC3_1 * x * z * G[10] +
+                kC3_2 * (4.f * zz - xx - 3.f * yy) * G[11] -
+                6.f * kC3_3 * y * z * G[12] - 2.f * kC3_4 * x * y * G[13] -
+                2.f * kC3_5 * y * z * G[14] - 6.f * kC3_6 * x * y * G[15];
+          gz += kC3_1 * x * y * G[10] + 8.f * kC3_2 * y * z * G[11] +
+                kC3_3 * (6.f * zz - 3.f * xx - 3.f * yy) * G[12] +
+                8.f * kC3_4 * x * z * G[13] + kC3_5 * (xx - yy) * G[14];
+        }
+      }
+      // dirs = d / sqrt(clamp_min(|d|^2, 1e-16))
+      const float g_dir[3] = {gx, gy, gz};
+      const float dirs[3] = {dr.x, dr.y, dr.z};
+      float g_n = 0.f;
 #pragma unroll
-    for (int k = 0; k < 3; ++k) g_n -= g_dir[k] * (dirs[k] / dr.norm);
-    const float g_sq = dr.pass ? g_n / (2.f * dr.norm) : 0.f;
+      for (int k = 0; k < 3; ++k) g_n -= g_dir[k] * (dirs[k] / dr.norm);
+      const float g_sq = dr.pass ? g_n / (2.f * dr.norm) : 0.f;
 #pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      g_m[k] += g_dir[k] / dr.norm + g_sq * (2.f * dr.d[k]);
+      for (int k = 0; k < 3; ++k) {
+        g_m[k] += g_dir[k] / dr.norm + g_sq * (2.f * dr.d[k]);
+      }
     }
   }
 

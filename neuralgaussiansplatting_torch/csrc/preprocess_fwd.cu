@@ -23,6 +23,12 @@
 // conflicts; (N, 4) rotations are one float4 a thread, (N, 2) and (N,)
 // outputs one float2 or float a thread, and conic and rgb go out through
 // shared memory as float4 stores.
+//
+// With precomputed colours (Scaffold-GS hands the rasterizer its decoded
+// colours) the kernel is instantiated at DEG = kColors: no SH rows are read
+// and no colour is written, since the colour output is the input tensor
+// itself, as the opacity is: 23 floats a Gaussian, ~0.22 ms for 8M at
+// 3.35 TB/s.
 
 #include <cuda_runtime.h>
 
@@ -70,7 +76,9 @@ preprocess_fwd_kernel(const FwdArgs a, const Settings s) {
   load_camera(cam, a.view, a.full_proj, a.campos);
   stage_in<3, 3>(s_m, a.means, base, rows, 3);
   stage_in<3, 3>(s_s, a.scales, base, rows, 3);
-  stage_in<NC, PITCH>(s_sh, a.shs, base, rows, a.sh_stride);
+  if constexpr (DEG >= 0) {
+    stage_in<NC, PITCH>(s_sh, a.shs, base, rows, a.sh_stride);
+  }
   const long long i = base + t;
   float4 rot = make_float4(0.f, 0.f, 0.f, 0.f);
   float op = 0.f;
@@ -102,12 +110,12 @@ preprocess_fwd_kernel(const FwdArgs a, const Settings s) {
 #pragma unroll
     for (int k = 0; k < 3; ++k) {
       s_m[3 * t + k] = o.conic[k];
-      s_s[3 * t + k] = o.rgb[k];
+      if constexpr (DEG >= 0) s_s[3 * t + k] = o.rgb[k];
     }
   }
   __syncthreads();
   stage_out<3, 3>(a.conic, s_m, base, rows, 3);
-  stage_out<3, 3>(a.rgb, s_s, base, rows, 3);
+  if constexpr (DEG >= 0) stage_out<3, 3>(a.rgb, s_s, base, rows, 3);
 }
 
 template <int DEG>
@@ -127,9 +135,10 @@ extern "C" {
 // full_proj: (4, 4) applied as M @ p; campos: (3,); offset: (n, 2) or null.
 // All float32, contiguous, on the device. Outputs (n, 2) means2d, (n,)
 // depths, (n,) int32 radii, (n, 3) conic, (n, 3) rgb, (n, 2) int32 rect_min
-// and rect_max, (n,) int32 tiles. Launches on `stream` and returns
-// cudaGetLastError() (0 on success); 1 (cudaErrorInvalidValue) for a degree
-// outside 0..3.
+// and rect_max, (n,) int32 tiles. sh_degree -1 (kColors) is the variant for
+// precomputed colours: shs and rgb are not touched (null) and may be null.
+// Launches on `stream` and returns cudaGetLastError() (0 on success); 1
+// (cudaErrorInvalidValue) for a degree outside -1..3.
 int preprocess_fwd(const void* means, const void* scales, const void* rots,
                    const void* opac, const void* shs, long long sh_stride,
                    int sh_degree, const void* view, const void* full_proj,
@@ -173,6 +182,7 @@ int preprocess_fwd(const void* means, const void* scales, const void* rots,
     case 1: return launch<1>(a, s, st);
     case 2: return launch<2>(a, s, st);
     case 3: return launch<3>(a, s, st);
+    case kColors: return launch<kColors>(a, s, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -1,6 +1,9 @@
 """Render API (port of the JAX package's ``gaussian_renderer``).
 
 ``render`` is the classic 3DGS render, differentiable through K1/K2.
+``render_scaffold`` renders Scaffold-GS's anchors: their neural Gaussians,
+decoded for the view, through the same rasterizer with precomputed
+colours.
 ``render1``/``render2``/``render3`` are the fork's neural-feature paths: the
 per-pixel z-buffer and feature map (``ops/idxmap.py``, kernel K3), then the
 screen-space decoders of ``models/nets.py``. Under a profiler each opens the
@@ -17,6 +20,7 @@ import torch
 from neuralgaussiansplatting_torch import resolve_device
 from neuralgaussiansplatting_torch.models import gaussians as gm
 from neuralgaussiansplatting_torch.models import nets
+from neuralgaussiansplatting_torch.models import scaffold
 from neuralgaussiansplatting_torch.ops import idxmap as idxmap_ops
 from neuralgaussiansplatting_torch.ops import rasterize as rast
 from neuralgaussiansplatting_torch.ops import sh as sh_ops
@@ -87,6 +91,58 @@ def render(
             "aligned_demand": out.aligned_demand,
             "dropped": out.dropped,
             "culled": out.culled,
+        }
+
+
+def render_scaffold(cam: CameraParams, view: int,
+                    params: scaffold.ScaffoldParams, nets: dict,
+                    bg_color: torch.Tensor,
+                    settings: rast.RasterizeSettings, anchor_capacity: int):
+    """Render Scaffold-GS's anchors (``models/scaffold.py``) from ``cam``,
+    the training camera ``view`` choosing the appearance embedding's row.
+
+    Under the span "ngs.render": "ngs.anchors", the visibility prefilter
+    (one preprocess launch over the anchors on the card) and the visible
+    anchors gathered on the device into ``anchor_capacity`` rows
+    (``scaffold.compact``); "ngs.generate", the MLPs, the expansion into
+    ``N_OFFSETS`` neural Gaussians a row and the gate, as dead slots
+    (opacity 0); then ``rast.rasterize`` with the colours precomputed (its
+    own spans). Nothing is read back to the host.
+
+    Returns a dict: "render" (3, H, W), "generated" (``scaffold.Generated``),
+    "rows" (the anchor of each decoded row), "visible" (the rows'
+    visibility), "visible_anchors" and "neural_gaussians" (device counts
+    of the visible anchors and the kept Gaussians), "anchor_overflow" (the
+    visible anchors left out of the rows), and the binning monitors of
+    ``render``.
+    """
+    with timing.span("ngs.render"):
+        with timing.span("ngs.anchors"):
+            visible = scaffold.visible_anchors(cam, params, settings.block_x,
+                                               settings.block_y)
+            rows, count = scaffold.compact(visible, anchor_capacity)
+            params = scaffold.ScaffoldParams(
+                *(t.index_select(0, rows) for t in params))
+            visible = torch.arange(rows.shape[0], device=rows.device) < count
+        with timing.span("ngs.generate"):
+            g = scaffold.generate(cam.campos, view, params, nets, visible)
+        out = rast.rasterize(
+            means3d=g.xyz, scales=g.scaling, rotations=g.rotation,
+            opacities=g.opacity, shs=None, sh_degree=0, cam=cam, bg=bg_color,
+            settings=settings, colors_precomp=g.color)
+        return {
+            "render": out.color,
+            "generated": g,
+            "rows": rows,
+            "visible": visible,
+            "visible_anchors": visible.sum(),
+            "neural_gaussians": g.gate.sum(),
+            "anchor_overflow": (count - rows.shape[0]).clamp_min(0),
+            "radii": out.radii,
+            "num_rendered": out.num_rendered,
+            "max_per_tile": out.max_per_tile,
+            "aligned_demand": out.aligned_demand,
+            "dropped": out.dropped,
         }
 
 

@@ -4,13 +4,16 @@ Port of ``ops/preprocess.py``. Culled Gaussians are not compacted; they
 carry ``radii == 0`` and ``tiles_touched == 0`` and binning skips them.
 
 ``preprocess_gaussians`` is the public pass, differentiable through
-``torch.autograd``. On CUDA tensors without precomputed covariances or
-colours its forward is one kernel (``csrc/preprocess_fwd.cu``) and its
-backward one kernel (``csrc/preprocess_bwd.cu``); ``launches`` and
-``bwd_launches`` count them. On the CPU, and with either precomputed input,
-it runs ``preprocess_gaussians_reference``, the plain version: dense
-(N, ...) tensor arithmetic in the JAX package's operation order, which the
-kernels repeat.
+``torch.autograd``. On CUDA tensors without precomputed covariances its
+forward is one kernel (``csrc/preprocess_fwd.cu``) and its backward one
+kernel (``csrc/preprocess_bwd.cu``); ``launches`` and ``bwd_launches``
+count them. With precomputed colours the kernels run their colour
+variant, which reads no SH: the colours pass through as the rgb output,
+as the opacity does, so their gradient is the upstream rgb gradient. On
+the CPU, and with precomputed covariances, it runs
+``preprocess_gaussians_reference``, the plain version: dense (N, ...)
+tensor arithmetic in the JAX package's operation order, which the kernels
+repeat.
 """
 
 from __future__ import annotations
@@ -35,6 +38,9 @@ _P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                    ctypes.c_float)
 # the C signatures of csrc/preprocess_{fwd,bwd}.cu (the last pointer is the
 # stream)
+# the kernels' degree for precomputed colours (csrc/preprocess_common.cuh's
+# kColors)
+COLORS = -1
 _FWD_ARGS = (_P, _P, _P, _P, _P, _LL, _I, _P, _P, _P, _P, _LL, _F, _F, _F, _F,
              _I, _I, _I, _I, _I, _I, _F, _I, _P, _P, _P, _P, _P, _P, _P, _P,
              _P)
@@ -117,9 +123,11 @@ def _cov2d_components(means3d, scales, rotations, view, focal_x, focal_y,
     Szz = R20 * R20 * s0 + R21 * R21 * s1 + R22 * R22 * s2_
 
     W = view[:3, :3]
-    tx_ = means3d @ W[0] + view[0, 3]
-    ty_ = means3d @ W[1] + view[1, 3]
-    tz_raw = means3d @ W[2] + view[2, 3]
+    # the view-space point of one matrix product, the depths' own
+    # (transform_points_4x3), which the kernels' affine_row repeats on the
+    # card: three matrix-vector products, one a row of W, round some rows
+    # otherwise (with or without fused multiply-adds, as the BLAS picks)
+    tx_, ty_, tz_raw = proj.transform_points_4x3(means3d, view).unbind(-1)
     tz_ = torch.where(torch.abs(tz_raw) < 0.01,
                       torch.where(tz_raw < 0, -0.01, 0.01), tz_raw)
     txz = torch.clamp(tx_ / tz_, -limit_x, limit_x) * tz_
@@ -304,7 +312,9 @@ class _Preprocess(torch.autograd.Function):
     """The forward kernel and the backward kernel: means2d, conic and rgb
     differentiable in the means, scales, rotations, SH rows and offset; the
     depths, radii, rects and tile counts carry no gradient. Saves only its
-    inputs: the backward recomputes the forward."""
+    inputs: the backward recomputes the forward. At ``sh_degree`` COLORS
+    ``shs`` is None and the rgb output an empty placeholder (the caller
+    passes the precomputed colours through)."""
 
     @staticmethod
     def forward(ctx, means3d, scales, rotations, opacities, shs, offset,
@@ -320,27 +330,29 @@ class _Preprocess(torch.autograd.Function):
         depths = torch.empty((n,), **f32)
         radii = torch.empty((n,), **i32)
         conic = torch.empty((n, 3), **f32)
-        rgb = torch.empty((n, 3), **f32)
+        rgb = torch.empty((n, 3) if shs is not None else (0,), **f32)
         rect_min = torch.empty((n, 2), **i32)
         rect_max = torch.empty((n, 2), **i32)
         tiles = torch.empty((n,), **i32)
         _build.launch(
             "preprocess_fwd", _FWD_ARGS, dev, means3d.data_ptr(),
             scales.data_ptr(), rotations.data_ptr(), opacities.data_ptr(),
-            shs.data_ptr(), shs.shape[1], sh_degree, view.data_ptr(),
-            full_proj.data_ptr(), campos.data_ptr(),
-            None if offset is None else offset.data_ptr(), n, focal_x,
-            focal_y, limit_x, limit_y, width, height, tiles_x, tiles_y,
-            block_x, block_y, scale_modifier, int(tight), means2d.data_ptr(),
-            depths.data_ptr(), radii.data_ptr(), conic.data_ptr(),
-            rgb.data_ptr(), rect_min.data_ptr(), rect_max.data_ptr(),
-            tiles.data_ptr())
+            _ptr(shs), 0 if shs is None else shs.shape[1], sh_degree,
+            view.data_ptr(), full_proj.data_ptr(), campos.data_ptr(),
+            _ptr(offset), n, focal_x, focal_y, limit_x, limit_y, width,
+            height, tiles_x, tiles_y, block_x, block_y, scale_modifier,
+            int(tight), means2d.data_ptr(), depths.data_ptr(),
+            radii.data_ptr(), conic.data_ptr(),
+            None if shs is None else rgb.data_ptr(), rect_min.data_ptr(),
+            rect_max.data_ptr(), tiles.data_ptr())
         launches += 1
         ctx.save_for_backward(means3d, scales, rotations, shs, view,
                               full_proj, campos)
         ctx.meta = meta
         ctx.has_offset = offset is not None
         ctx.mark_non_differentiable(depths, radii, rect_min, rect_max, tiles)
+        if shs is None:
+            ctx.mark_non_differentiable(rgb)
         ctx.set_materialize_grads(False)
         return means2d, depths, radii, conic, rgb, rect_min, rect_max, tiles
 
@@ -359,35 +371,38 @@ class _Preprocess(torch.autograd.Function):
                 return means3d.new_zeros((n, cols))
             return _floats(g, "the upstream gradient", (n, cols))
 
-        g_means2d, g_conic, g_rgb = (upstream(g_means2d, 2),
-                                     upstream(g_conic, 3),
-                                     upstream(g_rgb, 3))
+        g_means2d, g_conic = upstream(g_means2d, 2), upstream(g_conic, 3)
+        g_rgb = None if shs is None else upstream(g_rgb, 3)
         g_means = torch.empty_like(means3d)
         g_scales = torch.empty_like(scales)
         g_rots = torch.empty_like(rotations)
-        g_shs = torch.empty_like(shs)
+        g_shs = None if shs is None else torch.empty_like(shs)
         g_offset = (means3d.new_empty((n, 2)) if ctx.has_offset else None)
         _build.launch(
             "preprocess_bwd", _BWD_ARGS, means3d.device, means3d.data_ptr(),
-            scales.data_ptr(), rotations.data_ptr(), shs.data_ptr(),
-            shs.shape[1], sh_degree, view.data_ptr(), full_proj.data_ptr(),
-            campos.data_ptr(), n, focal_x, focal_y, limit_x, limit_y, width,
-            height, scale_modifier, g_means2d.data_ptr(), g_conic.data_ptr(),
-            g_rgb.data_ptr(), g_means.data_ptr(), g_scales.data_ptr(),
-            g_rots.data_ptr(), g_shs.data_ptr(),
-            None if g_offset is None else g_offset.data_ptr())
+            scales.data_ptr(), rotations.data_ptr(), _ptr(shs),
+            0 if shs is None else shs.shape[1], sh_degree, view.data_ptr(),
+            full_proj.data_ptr(), campos.data_ptr(), n, focal_x, focal_y,
+            limit_x, limit_y, width, height, scale_modifier,
+            g_means2d.data_ptr(), g_conic.data_ptr(), _ptr(g_rgb),
+            g_means.data_ptr(), g_scales.data_ptr(), g_rots.data_ptr(),
+            _ptr(g_shs), _ptr(g_offset))
         bwd_launches += 1
         return (g_means, g_scales, g_rots, None, g_shs, g_offset, None, None,
                 None, None)
+
+
+def _ptr(t: torch.Tensor | None):
+    return None if t is None else t.data_ptr()
 
 
 def takes_kernels(means3d: torch.Tensor,
                   cov3d_precomp: torch.Tensor | None = None,
                   colors_precomp: torch.Tensor | None = None) -> bool:
     """Whether ``preprocess_gaussians`` runs the kernels for these inputs:
-    CUDA tensors and neither precomputed input."""
-    return (means3d.device.type == "cuda" and cov3d_precomp is None
-            and colors_precomp is None)
+    CUDA tensors without precomputed covariances (precomputed colours take
+    the kernels' colour variant)."""
+    return means3d.device.type == "cuda" and cov3d_precomp is None
 
 
 def preprocess_gaussians(
@@ -414,8 +429,9 @@ def preprocess_gaussians(
     centres by offset * (W/2, H/2) pixels after the tile rects are taken
     (the reference's screen-space densification statistic is its
     gradient). The kernels run where ``takes_kernels`` says, the plain
-    version elsewhere; both give the same fields, the opacity being the
-    input tensor itself.
+    version elsewhere; both give the same fields, the opacity (and
+    ``colors_precomp``, where given, as the rgb) being the input tensor
+    itself.
     """
     if not takes_kernels(means3d, cov3d_precomp, colors_precomp):
         return preprocess_gaussians_reference(
@@ -423,20 +439,28 @@ def preprocess_gaussians(
             block_x, block_y, scale_modifier, cov3d_precomp=cov3d_precomp,
             colors_precomp=colors_precomp, tight=tight,
             means2d_offset=means2d_offset)
-    if not 0 <= sh_degree <= 3:
-        raise ValueError(f"SH degree must be in 0..3, got {sh_degree}")
     n = means3d.shape[0]
     dev = means3d.device
-    flat = shs.reshape(n, -1) if shs.dim() == 3 else shs
-    if (flat.dim() != 2 or flat.shape[1] % 3
-            or flat.shape[1] < 3 * (sh_degree + 1) ** 2):
-        raise ValueError(f"shs must hold (N, K, 3) coefficients with K >= "
-                         f"{(sh_degree + 1) ** 2}, got {tuple(shs.shape)}")
+    if colors_precomp is not None:
+        if tuple(colors_precomp.shape) != (n, 3):
+            raise ValueError(f"colors must be ({n}, 3), got "
+                             f"{tuple(colors_precomp.shape)}")
+        sh_degree, flat = COLORS, None
+    elif not 0 <= sh_degree <= 3:
+        raise ValueError(f"SH degree must be in 0..3, got {sh_degree}")
+    else:
+        flat = shs.reshape(n, -1) if shs.dim() == 3 else shs
+        if (flat.dim() != 2 or flat.shape[1] % 3
+                or flat.shape[1] < 3 * (sh_degree + 1) ** 2):
+            raise ValueError(f"shs must hold (N, K, 3) coefficients with K "
+                             f">= {(sh_degree + 1) ** 2}, got "
+                             f"{tuple(shs.shape)}")
+        flat = _floats(flat, "shs", tuple(flat.shape))
     args = [_floats(means3d, "means3d", (n, 3)),
             _floats(scales, "scales", (n, 3)),
             _floats(rotations, "rotations", (n, 4)),
             _floats(opacities, "opacities", (n,)),
-            _floats(flat, "shs", tuple(flat.shape)),
+            flat,
             None if means2d_offset is None
             else _floats(means2d_offset, "means2d_offset", (n, 2))]
     if any(a is not None and a.device != dev for a in args):
@@ -452,6 +476,8 @@ def preprocess_gaussians(
         *args, _camera_tensor(cam.view, dev),
         _camera_tensor(cam.full_proj, dev), _camera_tensor(cam.campos, dev),
         meta)
+    if colors_precomp is not None:
+        rgb = colors_precomp
     return Preprocessed(means2d=means2d, depths=depths, radii=radii,
                         conic=conic, opacity=opacities, rgb=rgb,
                         rect_min=rect_min, rect_max=rect_max,

@@ -31,6 +31,10 @@ trainer and serves no viewer. ``main(argv)`` returns a summary of the run
 (evaluations, iteration times, tune-point drops, the last loss, the
 final alive count and capacity, the viewer frames served) for callers in
 the same process.
+
+``--model scaffold`` trains Scaffold-GS instead (``train_scaffold``):
+anchors on the voxels of the point cloud at ``--voxel_size``, a fixed
+anchor set (the original's growing and pruning are not ported).
 """
 
 from __future__ import annotations
@@ -108,6 +112,18 @@ def build_parser() -> ArgumentParser:
     parser.add_argument("--profile_dir", type=str, default=None,
                         help="write a torch.profiler trace of iterations "
                              "100..110 to this directory")
+    parser.add_argument("--model", choices=("3dgs", "scaffold"),
+                        default="3dgs",
+                        help="scaffold: Scaffold-GS (anchors on the voxels "
+                             "of the point cloud, whose MLPs decode 10 "
+                             "neural Gaussians a view) through "
+                             "ScaffoldTrainer.step on a fixed anchor set: "
+                             "anchor growing and pruning are not ported; "
+                             "no viewer, evaluation or checkpoints, the "
+                             "anchors and nets saved at the last iteration "
+                             "(scaffold/iteration_N/scaffold.pt)")
+    parser.add_argument("--voxel_size", type=float, default=0.001,
+                        help="--model scaffold: the anchors' voxel size")
     return parser
 
 
@@ -287,6 +303,9 @@ def train(args, dataset: config.ModelParams, device: torch.device) -> dict:
         if args.data_parallel > 1:
             return train_data_parallel(args, scene, gaussians, opt, settings,
                                        dataset, tb_writer, device)
+        if args.model == "scaffold":
+            return train_scaffold(args, scene, gaussians, settings, dataset,
+                                  device)
         trainer = loop.Trainer(
             gaussians=gaussians, opt=opt, settings=settings,
             white_background=dataset.white_background,
@@ -439,6 +458,84 @@ def train_loop(args, scene, trainer: loop.Trainer, device, tb_writer,
     if profiler is not None:
         profiler.stop()
     return _finish(summary, trainer, metrics, t_run)
+
+
+def train_scaffold(args, scene, gaussians, settings, dataset,
+                   device) -> dict:
+    """``--model scaffold``: anchors on the voxels of the scene's point
+    cloud (``scaffold.init_anchors``), nets from seed 0, rows for the most
+    anchors a training view shows, then ``ScaffoldTrainer.step`` for
+    every iteration, one training camera a
+    step in ``default_rng(0)`` permutations (its index the appearance
+    embedding's row). Returns the summary of ``_finish``'s keys that apply
+    (the last loss, iteration times, the anchors)."""
+    from neuralgaussiansplatting_torch.models import scaffold
+    from neuralgaussiansplatting_torch.train import scaffold_loop
+    if args.data_parallel > 1 or args.steps_per_call > 1:
+        raise SystemExit("--model scaffold runs one step a call on one "
+                         "process")
+    alive = gaussians.state.alive
+    points = gaussians.params.xyz[alive].detach().cpu().numpy()
+    params = scaffold.init_anchors(points, args.voxel_size, device=device)
+    cams = scene.get_train_cameras()
+    with torch.no_grad():
+        visible = max(int(scaffold.visible_anchors(
+            c.params(device), params, settings.block_x,
+            settings.block_y).sum()) for c in cams)
+    trainer = scaffold_loop.ScaffoldTrainer(
+        params, scaffold.init_nets(len(cams), 0, device=device),
+        anchor_capacity=scaffold_loop.anchor_capacity_for(visible),
+        settings=settings, opt=scaffold_loop.ScaffoldOptimizationParams(
+            lambda_dssim=args.lambda_dssim),
+        white_background=dataset.white_background,
+        cameras_extent=scene.cameras_extent,
+        tune_interval=args.tune_interval)
+    print(f"Scaffold-GS: {params.anchor.shape[0]} anchors from "
+          f"{points.shape[0]} points at voxel size {args.voxel_size}")
+    rng = np.random.default_rng(0)
+    stack, cam_cache, gt_cache = [], {}, {}
+    summary = {"first_iter": 0, "evals": {}, "iter_ms": [], "tune": [],
+               "viewer": []}
+    metrics = None
+    iterations = args.iterations
+    t_run = t_last = time.perf_counter()
+    for iteration in range(1, iterations + 1):
+        if not stack:
+            stack = list(rng.permutation(len(cams)))
+        view = int(stack.pop())
+        cam = cams[view]
+        if view not in cam_cache:
+            cam_cache[view] = cam.params(device)
+            gt_cache[view] = torch.from_numpy(cam.image).to(device)
+        metrics = trainer.step(cam_cache[view], gt_cache[view], view)
+        now = time.perf_counter()
+        summary["iter_ms"].append(1e3 * (now - t_last))
+        t_last = now
+        if iteration % trainer.tune_interval == 0:
+            summary["tune"].append((iteration, int(metrics["dropped"])))
+        if iteration % PROGRESS_EVERY == 0 or iteration == iterations:
+            print(f"Training progress: {iteration}/{iterations} loss "
+                  f"{metrics['loss'].item():.7f}, visible anchors "
+                  f"{int(metrics['visible_anchors'])}, neural Gaussians "
+                  f"{int(metrics['neural_gaussians'])}")
+    out = os.path.join(dataset.model_path, "scaffold",
+                       f"iteration_{iterations}")
+    os.makedirs(out, exist_ok=True)
+    torch.save({"params": {k: v.detach().cpu() for k, v in
+                           trainer.ts.params._asdict().items()},
+                "nets": {k: v.detach().cpu()
+                         for k, v in trainer.ts.nets.items()}},
+               os.path.join(out, "scaffold.pt"))
+    if metrics is not None:
+        summary["last_loss"] = metrics["loss"].item()
+    summary["wall_s"] = time.perf_counter() - t_run
+    summary["median_iter_ms"] = (statistics.median(summary["iter_ms"])
+                                 if summary["iter_ms"] else None)
+    summary["anchors"] = params.anchor.shape[0]
+    print("\nTraining complete.")
+    if metrics is not None:
+        print(f"last loss {summary['last_loss']:.7f}")
+    return summary
 
 
 def train_data_parallel(args, scene, gaussians, opt, settings, dataset,

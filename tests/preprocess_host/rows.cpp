@@ -46,7 +46,7 @@ void fwd(const float* means, const float* scales, const float* rots,
     tiles[i] = o.tiles;
     for (int k = 0; k < 3; ++k) {
       conic[3 * i + k] = o.conic[k];
-      rgb[3 * i + k] = o.rgb[k];
+      if (DEG >= 0) rgb[3 * i + k] = o.rgb[k];
     }
   }
 }
@@ -57,10 +57,13 @@ void bwd(const float* means, const float* scales, const float* rots,
          const Settings& s, const float* gm, const float* gc, const float* gr,
          float* g_means, float* g_scales, float* g_rots, float* g_shs,
          float* g_off) {
-  constexpr int NC = 3 * (DEG + 1) * (DEG + 1);
+  // kColors (precomputed colours) reads and writes no SH row
+  constexpr int NC = DEG < 0 ? 1 : 3 * (DEG + 1) * (DEG + 1);
   for (long long i = 0; i < s.n; ++i) {
     float sh[NC];
-    for (int k = 0; k < NC; ++k) sh[k] = shs[stride * i + k];
+    if (DEG >= 0) {
+      for (int k = 0; k < NC; ++k) sh[k] = shs[stride * i + k];
+    }
     RowGrad g;
     backward_row<DEG>(means + 3 * i, scales + 3 * i, row4(rots, i), sh,
                       make_float2(gm[2 * i], gm[2 * i + 1]), gc + 3 * i,
@@ -70,7 +73,7 @@ void bwd(const float* means, const float* scales, const float* rots,
       g_scales[3 * i + k] = g.scale[k];
     }
     for (int k = 0; k < 4; ++k) g_rots[4 * i + k] = g.rot[k];
-    for (long long k = 0; k < stride; ++k) {
+    for (long long k = 0; DEG >= 0 && k < stride; ++k) {
       g_shs[stride * i + k] = k < NC ? sh[k] : 0.f;
     }
     if (g_off) {
@@ -84,7 +87,8 @@ void bwd(const float* means, const float* scales, const float* rots,
 
 extern "C" {
 
-// cam: view (16), full_proj (16), campos (3); off and g_off may be null.
+// cam: view (16), full_proj (16), campos (3); off and g_off may be null;
+// deg -1 (kColors) reads no shs and writes no rgb or g_shs.
 void host_fwd(int deg, long long n, const float* f, const int* i,
               const float* means, const float* scales, const float* rots,
               const float* opac, const float* shs, long long stride,
@@ -99,6 +103,9 @@ void host_fwd(int deg, long long n, const float* f, const int* i,
                    depth, rad, conic, rgb, lo, hi, tiles); break;
     case 2: fwd<2>(means, scales, rots, opac, shs, stride, cam, off, s, m2,
                    depth, rad, conic, rgb, lo, hi, tiles); break;
+    case kColors: fwd<kColors>(means, scales, rots, opac, shs, stride, cam,
+                               off, s, m2, depth, rad, conic, rgb, lo, hi,
+                               tiles); break;
     default: fwd<3>(means, scales, rots, opac, shs, stride, cam, off, s, m2,
                     depth, rad, conic, rgb, lo, hi, tiles); break;
   }
@@ -118,6 +125,9 @@ void host_bwd(int deg, long long n, const float* f, const int* i,
                    g_means, g_scales, g_rots, g_shs, g_off); break;
     case 2: bwd<2>(means, scales, rots, shs, stride, cam, s, gm, gc, gr,
                    g_means, g_scales, g_rots, g_shs, g_off); break;
+    case kColors: bwd<kColors>(means, scales, rots, shs, stride, cam, s, gm,
+                               gc, gr, g_means, g_scales, g_rots, g_shs,
+                               g_off); break;
     default: bwd<3>(means, scales, rots, shs, stride, cam, s, gm, gc, gr,
                     g_means, g_scales, g_rots, g_shs, g_off); break;
   }

@@ -2,9 +2,9 @@
 built for the host.
 
 ``preprocess_gaussians`` runs its two CUDA kernels only for CUDA tensors
-with neither precomputed input; here, on the CPU and with either
-precomputed input, it must be its plain version bit for bit, with the
-launch counters left at 0. The kernels' per-Gaussian functions
+without a precomputed covariance (precomputed colours take the kernels'
+colour variant); here, on the CPU, it must be its plain version bit for
+bit, with the launch counters left at 0. The kernels' per-Gaussian functions
 (``forward_row``, ``backward_row`` of ``csrc/preprocess_common.cuh``) are
 plain C++ under a few definitions (``tests/preprocess_host``): built with
 g++ (``-ffp-contract=off``, as nvcc's ``--fmad=false``) they run here
@@ -12,6 +12,7 @@ against the plain version and autograd through it, at the card tests'
 tolerances (``tests/test_torch_preprocess_cuda.py``). No JAX here.
 """
 
+import copy
 import ctypes
 import os
 import shutil
@@ -91,9 +92,10 @@ def test_precomputed_inputs_take_the_plain_version(precomputed):
     want = pp.preprocess_gaussians_reference(*args, tight=True, **extra)
     _equal(got, want)
     assert (pp.launches, pp.bwd_launches) == counts
-    # the same inputs on a CUDA device would not take the kernels either
+    # on a CUDA device precomputed colours alone take the kernels (their
+    # colour variant); a precomputed covariance keeps the plain version
     on_card = types.SimpleNamespace(device=torch.device("cuda"))
-    assert not pp.takes_kernels(on_card, **extra)
+    assert pp.takes_kernels(on_card, **extra) == (precomputed == "colors")
 
 
 def test_cuda_tensors_take_the_kernels():
@@ -332,6 +334,70 @@ def test_the_kernel_route_through_the_host_rows(host_rows, monkeypatch, deg,
         assert getattr(got, name).dtype == torch.int32
         assert torch.equal(getattr(got, name), getattr(plain, name)), name
     for name, g, p, r in zip(names, g_got, g_plain, g_ref):
+        assert g.shape == p.shape, name
+        cases.assert_held(name, g, p, r, case["groups"])
+
+
+@pytest.mark.parametrize("tight,offset", [(False, False), (True, True)],
+                         ids=["square-plain", "tight-offset"])
+def test_the_colour_variant_through_the_host_rows(host_rows, monkeypatch,
+                                                  tight, offset):
+    """Precomputed colours through the kernels' route, the C entries run by
+    the host rows at the colour variant's degree: the colours are the rgb
+    output itself and take the upstream rgb gradient as it is; the other
+    fields and gradients are held to the plain version given the same
+    colours, as the SH route's are; each counter moves once."""
+    monkeypatch.setattr(pp, "takes_kernels", lambda *a, **k: True)
+    monkeypatch.setattr(_build, "launch", host_launch(host_rows))
+    cam, case = _case(3, seed=40)
+    n = case["means3d"].shape[0]
+    colors = torch.from_numpy(np.random.default_rng(3).random(
+        (n, 3)).astype(np.float32))
+    names = ("means3d", "scales", "rotations", "offset")
+    radii = run(pp.preprocess_gaussians_reference, case, cam, 16, tight,
+                offset).radii
+    cot = cases.upstream(radii, seed=5)
+    outs = []
+    for fn, dtype in ((pp.preprocess_gaussians, torch.float32),
+                      (pp.preprocess_gaussians_reference, torch.float32),
+                      (pp.preprocess_gaussians_reference, torch.float64)):
+        leaves = {k: case[k].to(dtype, copy=True).requires_grad_()
+                  for k in names}
+        col = colors.to(dtype, copy=True).requires_grad_()
+        c = {k: (v.to(dtype) if torch.is_tensor(v) and v.is_floating_point()
+                 else v) for k, v in case.items()} | leaves
+        cam_d = cam
+        if dtype != torch.float32:
+            cam_d = copy.copy(cam)
+            for k in ("view", "full_proj", "campos"):
+                setattr(cam_d, k, getattr(cam, k).to(dtype))
+        counts = pp.launches, pp.bwd_launches
+        pre = fn(c["means3d"], c["scales"], c["rotations"], c["opacities"],
+                 c["shs"], 3, cam_d, 16, 16, tight=tight,
+                 colors_precomp=col,
+                 means2d_offset=c["offset"] if offset else None)
+        want = [leaves[k] for k in names[:3]] + [col] + (
+            [leaves["offset"]] if offset else [])
+        grads = torch.autograd.grad([pre.means2d, pre.conic, pre.rgb], want,
+                                    [x.to(dtype) for x in cot])
+        moved = (pp.launches - counts[0], pp.bwd_launches - counts[1])
+        assert moved == ((1, 1) if fn is pp.preprocess_gaussians
+                         else (0, 0))
+        outs.append((pre, col, grads))
+    (got, col, g_got), (plain, _, g_plain), (ref, _, g_ref) = outs
+    assert got.rgb is col and got.opacity is case["opacities"]
+    assert torch.equal(g_got[3], cot[2])
+    for name in ("means2d", "depths", "conic"):
+        r = getattr(ref, name)
+        cases.assert_held(name, getattr(got, name), getattr(plain, name), r,
+                          case["groups"], cases.row_scale(name, r, cam))
+    for name in ("radii", "rect_min", "rect_max", "tiles_touched"):
+        assert torch.equal(getattr(got, name), getattr(plain, name)), name
+    held = ("means3d", "scales", "rotations") + (("offset",) if offset
+                                                  else ())
+    for name, g, p, r in zip(held, g_got[:3] + g_got[4:],
+                             g_plain[:3] + g_plain[4:],
+                             g_ref[:3] + g_ref[4:]):
         assert g.shape == p.shape, name
         cases.assert_held(name, g, p, r, case["groups"])
 
