@@ -576,70 +576,119 @@ COLOR_WORKLOADS = (5_000_000, 8_000_000)
 
 def preprocess_colors(n: int) -> tuple[dict, dict]:
     """The preprocess kernels' colour variant on ``n`` garden-drawn
-    Gaussians at 1297x840 (32x32 tiles, tight, no offset): its forward equal
-    to the SH variant's, bit for bit, in every field but the colour, which
-    is the input tensor itself; the colours' gradient the upstream one; two
-    backward launches bit-equal; then the device time (profiler, 20 calls),
-    back-to-back time (CUDA events), the plain version's and the bytes
-    bound of each way (forward 23 floats a Gaussian, backward 25: no SH and
-    no colour read or written). Returns the (forward, backward) workload
-    entries."""
+    Gaussians at 1297x840 (32x32 tiles, tight, no offset), held to the
+    plain version with the same precomputed colours under
+    ``phase_preprocess``' gate (``preprocess_cases.assert_held``): means2d,
+    depths and conic to each row's scale, and the means', scales' and
+    rotations' gradients to the largest |gradient| of their band, each as
+    close to the float64 plain version as the float32 one is, or within
+    1e-5; the integer outputs equal but on at most 1e-5 of the rows.
+    Besides: every geometric output the SH variant's bits, the colours the
+    rgb output itself and their gradient the upstream one, two backward
+    launches bit-equal, one launch each way. Then the device time
+    (profiler, 20 calls), back-to-back time (CUDA events), the plain
+    version's and the bytes bound of each way (forward 23 floats a
+    Gaussian, backward 25: no SH and no colour read or written). Returns
+    the (forward, backward) workload entries."""
     w, h = 1297, 840
     inputs, cam = garden_preprocess_inputs(n, w, h, seed=7)
+    del inputs["offset"]
     gen = torch.Generator(device="cuda").manual_seed(8)
-    colors = torch.rand((n, 3), device="cuda", generator=gen)
-    leaves = ("means3d", "scales", "rotations")
-    made = {k: v.detach().clone().requires_grad_() if k in leaves
-            else v.detach() for k, v in inputs.items()}
-    col = colors.clone().requires_grad_()
+    inputs["colors"] = torch.rand((n, 3), device="cuda", generator=gen)
+    groups = ["bulk"] * n
+    leaves = ("means3d", "scales", "rotations", "colors")
 
-    def call(fn, colored=True, grad=True):
+    def make(dtype=torch.float32):
+        ins = {k: v.detach().to(dtype, copy=True) for k, v in
+               inputs.items()}
+        for k in leaves:
+            ins[k].requires_grad_()
+        c = cam
+        if dtype != torch.float32:
+            c = copy.copy(cam)
+            for k in ("view", "full_proj", "campos"):
+                setattr(c, k, getattr(cam, k).to(dtype))
+        return ins, c
+
+    def call(fn, made, colored=True, grad=True):
+        ins, c = made
         with torch.set_grad_enabled(grad):
-            return fn(made["means3d"], made["scales"], made["rotations"],
-                      made["opacities"], made["shs"], SH_DEGREE, cam, 32, 32,
-                      tight=True, colors_precomp=col if colored else None)
+            return fn(ins["means3d"], ins["scales"], ins["rotations"],
+                      ins["opacities"], ins["shs"], SH_DEGREE, c, 32, 32,
+                      tight=True,
+                      colors_precomp=ins["colors"] if colored else None)
 
-    with torch.no_grad():
-        sh = call(pp.preprocess_gaussians, colored=False)
+    def held(label, *args):
+        try:
+            return cases.assert_held(label, *args)
+        except AssertionError as e:
+            fail(f"preprocess colour variant {label} ({n}): further from "
+                 f"the float64 plain version than the float32 one, in rows "
+                 f"{e}")
+
+    plain = pp.preprocess_gaussians_reference
+    mk, mp, mr = make(), make(), make(torch.float64)
+    sh = call(pp.preprocess_gaussians, mk, colored=False, grad=False)
     f0, b0 = pp.launches, pp.bwd_launches
-    pre = call(pp.preprocess_gaussians)
-    same = all(torch.equal(getattr(pre, f), getattr(sh, f)) for f in (
+    got = call(pp.preprocess_gaussians, mk)
+    want, ref = call(plain, mp), call(plain, mr)
+    check(all(torch.equal(getattr(got, f), getattr(sh, f)) for f in (
         "means2d", "depths", "radii", "conic", "rect_min", "rect_max",
-        "tiles_touched"))
-    check(same and pre.rgb is col, f"preprocess colour variant ({n}): its "
-          "geometry is not the SH variant's bits, or the colours do not "
-          "pass through")
-    live = (pre.radii > 0)[:, None]
+        "tiles_touched")) and got.rgb is mk[0]["colors"],
+          f"preprocess colour variant ({n}): its geometry is not the SH "
+          "variant's bits, or the colours do not pass through")
+    del sh
+    err = 0.0
+    for field in ("means2d", "depths", "conic"):
+        r = getattr(ref, field).detach()
+        err = max(err, held(f"forward {field}", getattr(got, field),
+                            getattr(want, field), r, groups,
+                            cases.row_scale(field, r, cam)))
+    differ = torch.zeros(n, dtype=torch.bool, device="cuda")
+    for field in ("radii", "rect_min", "rect_max", "tiles_touched"):
+        differ |= (getattr(got, field) != getattr(want, field)).reshape(
+            n, -1).any(dim=1)
+    check(int(differ.sum()) <= 1e-5 * n, f"preprocess colour variant "
+          f"({n}): {int(differ.sum())} rows differ in an integer output")
+    live = (want.radii > 0)[:, None]
     cot = [torch.where(live, torch.randn((n, c), device="cuda",
                                          generator=gen) * sc, 0.0)
            for c, sc in ((2, 1e-2), (3, 1e-1), (3, 1.0))]
-    outs = [pre.means2d, pre.conic, pre.rgb]
-    wrt = [made[k] for k in leaves] + [col]
-    g1 = torch.autograd.grad(outs, wrt, cot, retain_graph=True)
-    g2 = torch.autograd.grad(outs, wrt, cot, retain_graph=True)
+    outs = [got.means2d, got.conic, got.rgb]
+    outs_p = [want.means2d, want.conic, want.rgb]
+    wrt = [mk[0][k] for k in leaves]
+    wrt_p = [mp[0][k] for k in leaves]
+    gk = torch.autograd.grad(outs, wrt, cot, retain_graph=True)
+    again = torch.autograd.grad(outs, wrt, cot, retain_graph=True)
     check((pp.launches - f0, pp.bwd_launches - b0) == (1, 2),
           f"preprocess colour variant ({n}): launches "
           f"{(pp.launches - f0, pp.bwd_launches - b0)}, not (1, 2)")
-    check(all(torch.equal(a, b) for a, b in zip(g1, g2))
-          and torch.equal(g1[3], cot[2]), f"preprocess colour variant "
+    check(all(torch.equal(a, b) for a, b in zip(gk, again))
+          and torch.equal(gk[3], cot[2]), f"preprocess colour variant "
           f"({n}): two backward launches differ, or the colours' gradient "
           "is not the upstream one")
-    del sh, g1, g2
-    plain = pp.preprocess_gaussians_reference
+    gp = torch.autograd.grad(outs_p, wrt_p, cot, retain_graph=True)
+    gr = torch.autograd.grad([ref.means2d, ref.conic, ref.rgb],
+                             [mr[0][k] for k in leaves],
+                             [c.double() for c in cot])
+    del ref, mr
+    gerr = 0.0
+    for leaf, a, c, r in zip(leaves[:3], gk, gp, gr):
+        gerr = max(gerr, held(f"backward {leaf}", a, c, r,
+                              cases.magnitude_bands(groups, r)))
+    del gk, again, gp, gr
 
-    def bwd(fn_outs):
-        return lambda: torch.autograd.grad(fn_outs, wrt, cot,
+    def bwd(fn_outs, fn_wrt):
+        return lambda: torch.autograd.grad(fn_outs, fn_wrt, cot,
                                            retain_graph=True)
 
     out = []
-    for kernel, fn, plain_fn, floats in (
-            ("preprocess_fwd", lambda: call(pp.preprocess_gaussians,
+    for kernel, fn, plain_fn, floats, e in (
+            ("preprocess_fwd", lambda: call(pp.preprocess_gaussians, mk,
                                             grad=False),
-             lambda: call(plain, grad=False), 23),
-            ("preprocess_bwd", bwd(outs), None, 25)):
-        if plain_fn is None:
-            p = call(plain)
-            plain_fn = bwd([p.means2d, p.conic, p.rgb])
+             lambda: call(plain, mp, grad=False), 23, err),
+            ("preprocess_bwd", bwd(outs, wrt), bwd(outs_p, wrt_p), 25,
+             gerr)):
         ms = device_ms(fn, reps=20)
         dispatch_ms = cuda_ms(fn, reps=20, warmup=2)
         plain_ms = cuda_ms(plain_fn, reps=3)
@@ -649,11 +698,14 @@ def preprocess_colors(n: int) -> tuple[dict, dict]:
               f"{ms:.4f} ms, back-to-back calls (CUDA events) "
               f"{dispatch_ms:.4f} ms, plain version {plain_ms:.4f} ms; bound "
               f"{bound_ms:.4f} ms by bytes ({4 * floats * n} B), "
-              f"{100 * bound_ms / ms:.1f} % of it")
+              f"{100 * bound_ms / ms:.1f} % of it; largest error from the "
+              f"float64 plain version {e:.3e} of its scale (each row's, or "
+              "its band's largest)")
         out.append({"workload": f"colors {n}", "gaussians": n, "width": w,
                     "height": h, "ms": ms, "dispatch_ms": dispatch_ms,
-                    "plain_ms": plain_ms, "bound_ms": bound_ms})
-    del pre, outs, made, col, cot, inputs
+                    "plain_ms": plain_ms, "bound_ms": bound_ms,
+                    "max_rel_err": e})
+    del got, want, outs, outs_p, wrt, wrt_p, mk, mp, cot, inputs
     torch.cuda.empty_cache()
     return tuple(out)
 

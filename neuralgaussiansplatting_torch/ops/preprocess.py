@@ -13,7 +13,11 @@ as the opacity does, so their gradient is the upstream rgb gradient. On
 the CPU, and with precomputed covariances, it runs
 ``preprocess_gaussians_reference``, the plain version: dense (N, ...)
 tensor arithmetic in the JAX package's operation order, which the kernels
-repeat.
+repeat, but for the covariance's view-space point: the JAX package's
+``_cov2d_components`` takes it from three matrix-vector products, the
+plain version from the depths' one matrix product
+(``projection.transform_points_4x3``), as the kernels do; the two differ
+only in rounding.
 """
 
 from __future__ import annotations
@@ -125,8 +129,9 @@ def _cov2d_components(means3d, scales, rotations, view, focal_x, focal_y,
     W = view[:3, :3]
     # the view-space point of one matrix product, the depths' own
     # (transform_points_4x3), which the kernels' affine_row repeats on the
-    # card: three matrix-vector products, one a row of W, round some rows
-    # otherwise (with or without fused multiply-adds, as the BLAS picks)
+    # card; the JAX package's three matrix-vector products, one a row of
+    # W, round some rows otherwise (with or without fused multiply-adds,
+    # as the BLAS picks)
     tx_, ty_, tz_raw = proj.transform_points_4x3(means3d, view).unbind(-1)
     tz_ = torch.where(torch.abs(tz_raw) < 0.01,
                       torch.where(tz_raw < 0, -0.01, 0.01), tz_raw)

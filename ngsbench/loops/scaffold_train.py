@@ -456,8 +456,9 @@ def control(cfg: dict, mix: dict, seed: int, device) -> dict:
     """{variant: numbers} that set the check's upper readings, on the
     anchors and nets a run hands the program: the reference in bfloat16
     in the program's place ("control"), with its MLPs alone in bfloat16
-    ("mlp_bf16"), and with half of each image's rows left out of the loss,
-    the mean over the rest ("half_batch")."""
+    ("mlp_bf16") or with TF32's operands ("mlp_tf32", the step a port that
+    let TF32 into the MLPs would take), and with half of each image's rows
+    left out of the loss, the mean over the rest ("half_batch")."""
     ref_render.no_tf32()
     cams = scene.cameras(cfg, "train")
     gt = scene.make_images(cfg, seed, len(cams), device)
@@ -479,4 +480,5 @@ def control(cfg: dict, mix: dict, seed: int, device) -> dict:
 
     return {"control": variant(dtype=torch.bfloat16),
             "mlp_bf16": variant(mlp_dtype=torch.bfloat16),
+            "mlp_tf32": variant(mlp_tf32=True),
             "half_batch": variant(loss_rows=cfg["height"] // 2)}

@@ -28,7 +28,9 @@ same set of Gaussians.
 Written from those rules and ``render.py``'s alone: it imports nothing of
 the program and takes nothing the program made. It computes in ``dtype``
 (float32 unless a control asks for less; ``mlp_dtype`` the MLPs' alone)
-with TF32 off (``render.no_tf32``).
+with TF32 off (``render.no_tf32``); ``mlp_tf32`` gives the MLPs' matrix
+products TF32's operands (``tf32``), a control that leaves the rest in
+float32.
 """
 
 from __future__ import annotations
@@ -137,16 +139,41 @@ def prefilter(anchor: torch.Tensor, scaling: torch.Tensor, cam,
         return (depth > ref.NEAR) & (det != 0) & ((x1 - x0) * (y1 - y0) > 0)
 
 
-def _mlp(x, nets: dict, name: str, dtype):
+def tf32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` (float32) with its mantissa rounded to TF32's 10 bits, to
+    nearest with ties away from zero: a float32 operand as a tensor core
+    reads it with TF32 on."""
+    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+class _TF32Linear(torch.autograd.Function):
+    """``F.linear`` of (N, in) rows as a matrix product with TF32 on
+    computes it, on any device: the operands of each product, forward and
+    both gradients', rounded by ``tf32``, the sums in float32."""
+
+    @staticmethod
+    def forward(ctx, x, w, b):
+        ctx.save_for_backward(x, w)
+        return F.linear(tf32(x), tf32(w), b)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g32 = tf32(g)
+        return g32 @ tf32(w), g32.T @ tf32(x), g.sum(0)
+
+
+def _mlp(x, nets: dict, name: str, dtype, tf32_operands: bool = False):
     def p(key):
         return nets[f"{name}.{key}"].to(dtype)
 
-    hid = F.relu(F.linear(x.to(dtype), p("0.weight"), p("0.bias")))
-    return F.linear(hid, p("2.weight"), p("2.bias"))
+    linear = _TF32Linear.apply if tf32_operands else F.linear
+    hid = F.relu(linear(x.to(dtype), p("0.weight"), p("0.bias")))
+    return linear(hid, p("2.weight"), p("2.bias"))
 
 
 def generate(params: dict, nets: dict, cam, view: int, visible, k: int,
-             mlp_dtype=None) -> dict:
+             mlp_dtype=None, mlp_tf32: bool = False) -> dict:
     """The original's ``generate_neural_gaussians``: the kept neural
     Gaussians of the visible anchors ("xyz", "color", "opacity",
     "scaling", "rotation", rows in anchor order) and "gate" (N x k,) bool,
@@ -163,13 +190,16 @@ def generate(params: dict, nets: dict, cam, view: int, visible, k: int,
     local = torch.cat([feat, ob], 1)
     app = nets["embedding_appearance.weight"][view].to(dt)
     app = app[None].expand(anchor.shape[0], -1)
-    neural_opacity = torch.tanh(_mlp(local, nets, "mlp_opacity", mdt))
+    neural_opacity = torch.tanh(_mlp(local, nets, "mlp_opacity", mdt,
+                                     mlp_tf32))
     neural_opacity = neural_opacity.to(dt).reshape(-1, 1)
     mask = (neural_opacity > 0.0).view(-1)
     opacity = neural_opacity[mask]
     color = torch.sigmoid(_mlp(torch.cat([local, app], 1), nets,
-                               "mlp_color", mdt)).to(dt).reshape(-1, 3)
-    scale_rot = _mlp(local, nets, "mlp_cov", mdt).to(dt).reshape(-1, 7)
+                               "mlp_color", mdt, mlp_tf32))
+    color = color.to(dt).reshape(-1, 3)
+    scale_rot = _mlp(local, nets, "mlp_cov", mdt, mlp_tf32)
+    scale_rot = scale_rot.to(dt).reshape(-1, 7)
     rep = torch.repeat_interleave(torch.cat([grid, anchor], -1), k, 0)
     masked = torch.cat([rep, color, scale_rot, offsets.reshape(-1, 3)],
                        -1)[mask]
@@ -201,6 +231,7 @@ def _screen(gen: dict, cam, tile: int, dtype):
 
 def forward(leaves: dict, cam, view: int, bg, *, n_offsets: int,
             tile: int, dtype=torch.float32, mlp_dtype=None,
+            mlp_tf32: bool = False,
             pair_budget: int = ref.PAIR_BUDGET) -> dict:
     """One view's forward from ``leaves`` (the anchors' and the nets'):
     "image" (3, H, W) detached, "visible", "generated" (``generate``),
@@ -208,7 +239,8 @@ def forward(leaves: dict, cam, view: int, bg, *, n_offsets: int,
     kept Gaussians' mean scale product, differentiable), "bg" and "counts"
     (``render.render``'s, and "anchors", "visible_anchors", "kept")."""
     vis = prefilter(leaves["anchor"], leaves["scaling"], cam, tile)
-    gen = generate(leaves, leaves, cam, view, vis, n_offsets, mlp_dtype)
+    gen = generate(leaves, leaves, cam, view, vis, n_offsets, mlp_dtype,
+                   mlp_tf32)
     scr = _screen(gen, cam, tile, dtype)
     s = gen["scaling"]
     reg = (s[:, 0] * s[:, 1] * s[:, 2]).mean() if s.shape[0] else s.sum()
@@ -267,7 +299,8 @@ def backward(f: dict, leaves: dict, gimg: torch.Tensor,
 def steps(params: dict, nets: dict, cams, views, gts, bg, *, n_offsets: int,
           tile: int, lambda_dssim: float, scale_reg: float, rates: dict,
           first_iteration: int, extent: float, dtype=torch.float32,
-          mlp_dtype=None, loss_rows: int | None = None,
+          mlp_dtype=None, mlp_tf32: bool = False,
+          loss_rows: int | None = None,
           pair_budget: int = ref.PAIR_BUDGET) -> dict:
     """Train from ``params`` (``ANCHOR_LEAVES``) and ``nets`` one step per
     camera of ``cams`` (training view ``views[i]``) against ``gts``.
@@ -288,7 +321,7 @@ def steps(params: dict, nets: dict, cams, views, gts, bg, *, n_offsets: int,
     for i, (cam, view, gt) in enumerate(zip(cams, views, gts)):
         free = {k: v.detach().requires_grad_() for k, v in leaves.items()}
         f = forward(free, cam, view, bg, n_offsets=n_offsets, tile=tile,
-                    dtype=dtype, mlp_dtype=mlp_dtype,
+                    dtype=dtype, mlp_dtype=mlp_dtype, mlp_tf32=mlp_tf32,
                     pair_budget=pair_budget)
         img = f["image"].detach().requires_grad_()
         photo = ref.loss_fn(img, gt, lambda_dssim, loss_rows)

@@ -73,6 +73,39 @@ def test_cpu_tensors_take_the_plain_version(tight, offset):
     assert (pp.launches, pp.bwd_launches) == counts
 
 
+def _at(t: torch.Tensor, shift: int) -> torch.Tensor:
+    """``t``'s values in a fresh buffer, ``shift`` floats past its start
+    (the data pointer's alignment moved)."""
+    buf = torch.empty(t.numel() + 8, dtype=t.dtype)
+    out = buf[shift:shift + t.numel()].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize("threads", [1, 2, 4])
+def test_the_plain_version_repeats_bit_for_bit(threads):
+    """700 calls of the plain version on the CPU, as
+    ``test_cpu_tensors_take_the_plain_version[square-plain]`` makes them
+    (the one that once saw two calls' radii differ), with the means',
+    scales' and rotations' buffers shifted by 0-7 floats in turn and
+    ``threads`` intra-op threads: every output equals the first call's
+    bit for bit."""
+    cam, case = _case()
+    before = torch.get_num_threads()
+    torch.set_num_threads(threads)
+    try:
+        with torch.no_grad():
+            first = run(pp.preprocess_gaussians_reference, case, cam, 16,
+                        False, False)
+            for i in range(700):
+                moved = {k: _at(case[k], i % 8)
+                         for k in ("means3d", "scales", "rotations")}
+                _equal(run(pp.preprocess_gaussians_reference, case, cam,
+                           16, False, False, moved), first)
+    finally:
+        torch.set_num_threads(before)
+
+
 @pytest.mark.parametrize("precomputed", ["cov3d", "colors", "both"])
 def test_precomputed_inputs_take_the_plain_version(precomputed):
     cam, case = _case(deg=1)

@@ -8,8 +8,8 @@ camera and many outside its frustum, 96 x 64, two views), the port and the
 reference decode the same seeded anchors and nets: the visible anchors and
 the gate equal, the kept Gaussians' attributes, the image, the loss, every
 leaf's gradient (the repository's gradient gate, atol 5e-4 max|g| and rtol
-5e-3) and one Adam step's change. The reference with its MLPs in bfloat16
-fails those gates.
+5e-3) and one Adam step's change. The reference with its MLPs in bfloat16,
+or with TF32's operands in their matrix products, fails those gates.
 
 The card tests (``-m cuda``; this file imports no JAX, so on a GPU host
 without it: ``python -m pytest --noconftest -m cuda
@@ -128,13 +128,13 @@ def port_record(params, nets, cam, view, gt) -> dict:
             "grads": dict(zip(leaves, grads)), "out": out}
 
 
-def ref_record(params, nets, cam, view, gt, mlp_dtype=None) -> dict:
-    """The reference's view, as ``port_record``'s."""
+def ref_record(params, nets, cam, view, gt, **mlp) -> dict:
+    """The reference's view, as ``port_record``'s; ``mlp`` its MLPs'
+    precision (``mlp_dtype``, ``mlp_tf32``)."""
     leaves = {k: v.clone().requires_grad_()
               for k, v in (params._asdict() | nets).items()}
     f = ref.forward(leaves, ref_camera(cam), view, BG,
-                    n_offsets=scaffold.N_OFFSETS, tile=TILE,
-                    mlp_dtype=mlp_dtype)
+                    n_offsets=scaffold.N_OFFSETS, tile=TILE, **mlp)
     img = f["image"].detach().requires_grad_()
     photo = ref_render.loss_fn(img, gt, 0.2)
     (gimg,) = torch.autograd.grad(photo, [img])
@@ -187,6 +187,22 @@ def test_the_bfloat16_mlp_control_fails(scene):
     want = ref_record(params, nets, cams[0], 0, gts[0])
     ctl = ref_record(params, nets, cams[0], 0, gts[0],
                      mlp_dtype=torch.bfloat16)
+    v = verdicts(ctl, want)
+    assert not all(v.values())
+
+
+def test_the_tf32_mlp_control_fails(scene):
+    """The reference with TF32's operands in its MLPs' matrix products (10
+    mantissa bits, rounded to nearest, ties away from zero; the sums in
+    float32) fails at least one of the gates the port passes."""
+    x = torch.tensor([1.0, 1 + 2 ** -11, 1 + 2 ** -10 + 2 ** -12,
+                      -(1 + 2 ** -11), 3.0 * 2 ** -130, float("inf")])
+    assert ref.tf32(x).tolist() == [
+        1.0, 1 + 2 ** -10, 1 + 2 ** -10, -(1 + 2 ** -10), 3.0 * 2 ** -130,
+        float("inf")]
+    params, nets, cams, gts = scene
+    want = ref_record(params, nets, cams[0], 0, gts[0])
+    ctl = ref_record(params, nets, cams[0], 0, gts[0], mlp_tf32=True)
     v = verdicts(ctl, want)
     assert not all(v.values())
 
