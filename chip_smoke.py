@@ -18,7 +18,11 @@ over garden's seven groups (615M floats) bit-equal to the plain version,
 timed beside it and its bytes bound. Then the denoiser's pair at 800x800
 on the map as the CNN writes it: the forward bit-equal to the plain
 version, both gradients within 1e-5 of their scale, each timed beside the
-plain version and its bytes bound.
+plain version and its bytes bound. Then the binning kernels at the garden
+cells' call (that cloud, 32x32 tiles, precise cull, the exact key) and at
+the neural z-buffer's (300k, the packed key): ``Instances`` bit-equal to
+the plain version, the kernels and the sort alone each timed beside the
+plain version and its bytes bound, with a per-kernel split.
 
 Classic path (800x800, 100k Gaussians, SH degree 3, the bench rasterizer
 settings): a demo cloud saved to PLY, loaded back and rendered from four
@@ -189,6 +193,7 @@ from neuralgaussiansplatting_torch.train import neural_loop
 from neuralgaussiansplatting_torch.train import optim
 from neuralgaussiansplatting_torch.utils import losses
 from neuralgaussiansplatting_torch.utils import lpips
+from neuralgaussiansplatting_torch.utils import timing
 from neuralgaussiansplatting_torch.utils.timing import (cuda_ms, device_ms,
                                                         device_records,
                                                         parts_ms,
@@ -523,7 +528,8 @@ def phase_build():
                          "zbuffer_fwd", "blend_pallas_fwd",
                          "blend_pallas_bwd", "decode_runs", "mosaic_probe",
                          "preprocess_fwd", "preprocess_bwd",
-                         "adam_update", "denoise_fwd", "denoise_bwd"])
+                         "adam_update", "denoise_fwd", "denoise_bwd",
+                         "binning"])
     print(f"build: {time.perf_counter() - t0:.1f} s "
           f"({', '.join(logs) or 'cached'})")
     for name, log in logs.items():
@@ -900,6 +906,181 @@ def phase_preprocess(params, state) -> dict:
         # largest |gradient|
         del row["max_abs_err"]
         row["max_rel_err"] = g["max_rel_err"]
+        row["workloads"] = per[kernel]
+        rows[kernel] = row
+    return rows
+
+
+# The binning kernels' workloads: "garden" is the garden cells' call (the
+# preprocess phase's 5M-Gaussian cloud at 1297x840, 32x32 tiles, tight
+# rects, precise cull, the exact key, buffers by the benchmark's probe rule);
+# "neural" is neural800.train's z-buffer call (300k Gaussians at 800x800,
+# the packed key, no cull, capacity 2^19), as zbuffer_pallas.zbuf_inputs
+# makes it.
+BIN_NEURAL = (300_000, 800, 800)
+
+
+def expansion_keys(pre, inst, num_tiles, pack):
+    """The kept instances' sort keys in expansion order (by eid), the
+    sort's input, rebuilt from the plain version's ``inst``: a valid slot
+    of tile t holds eid e and gid g, so key e is (t << shift) + (g's depth
+    bits >> (31 - shift)) (``binning.key_layout``). Every kept instance
+    must hold a slot (nothing dropped)."""
+    check(int(inst.dropped) == 0, "the sort's input needs every kept "
+          f"instance in a slot; {int(inst.dropped)} dropped")
+    shift = binning.key_layout(num_tiles, pack)[1]
+    valid = inst.valid
+    tile = torch.repeat_interleave(
+        torch.arange(num_tiles, device=valid.device), inst.tile_count.long())
+    depth = pre.depths.view(torch.int32)[inst.gid[valid].long()].long()
+    keys = torch.empty(tile.numel(), dtype=torch.int64, device=valid.device)
+    keys[inst.eid[valid].long()] = (tile << shift) + (depth >> (31 - shift))
+    return keys.to(torch.int32) if pack else keys
+
+
+def binning_workloads():
+    """{name: (pre, args, kw)} of the binning phase's two calls."""
+    n, w, h = PRE_WORKLOADS["garden"]
+    inputs, cam = garden_preprocess_inputs(n, w, h)
+    with torch.no_grad():
+        pre = pp.preprocess_gaussians(
+            inputs["means3d"], inputs["scales"], inputs["rotations"],
+            inputs["opacities"], inputs["shs"], SH_DEGREE, cam, 32, 32,
+            tight=True)
+    tx, ty = -(-w // 32), -(-h // 32)
+    probe = binning.bin_gaussians(pre, tx, ty, 1 << 24, 1 << 20, 128,
+                                  precise_cull=True, block_x=32, block_y=32,
+                                  width=w, height=h)
+    cap, kcap = bench_garden.size_from_probe(int(probe.num_rendered),
+                                             int(probe.aligned_demand))
+    max_per_tile = 4096  # the pipeline's, doubled to hold the densest tile
+    while max_per_tile < int(probe.max_tile_load):
+        max_per_tile *= 2
+    garden = (pre, (tx, ty, cap, max_per_tile, 128),
+              dict(precise_cull=True, packed_capacity=kcap, block_x=32,
+                   block_y=32, width=w, height=h))
+    n, w, h = BIN_NEURAL
+    means = garden_preprocess_inputs(n, w, h, seed=9)[0]["means3d"]
+    neural = zbuffer_pallas.binning_call(means, demo.demo_camera(w, h),
+                                         TILE_CAPACITY)[:3]
+    return {"garden": garden, "neural": neural}
+
+
+def binning_bytes(n, kept, kcap, tiles, passes, key_bytes, cull):
+    """(all, sort) bytes the binning moves as the function needs them: the
+    Gaussians' inputs read once (tiles_touched, rects and depth; conic,
+    opacity and centre under the cull), each kept (key, eid) pair written
+    once and read and written once per sort pass, the gid of each kept
+    instance written and read once, and the outputs written once (gid, eid,
+    valid per packed slot, start and count per tile, gstart and gcount per
+    Gaussian); the sort alone moves the pairs its passes read and write."""
+    pair = key_bytes + 4
+    sort = 2 * passes * pair * kept
+    inputs = n * (4 + 16 + 4 + (24 if cull else 0))
+    outputs = 9 * kcap + 8 * tiles + 8 * n
+    return inputs + pair * kept + 8 * kept + sort + outputs, sort
+
+
+def phase_binning() -> dict:
+    """The binning kernels at the two workloads: ``Instances`` bit-equal to
+    the plain version's on the same inputs, one launch counted; then per
+    call, the kernels' device time (profiler, 20 calls) and back-to-back
+    time (CUDA events), the plain version's, and the bytes bound; and the
+    same for the sort alone, on the kept keys in expansion order, rebuilt
+    from the plain version's instances (each call copies them in first: the profiler's time reads the sort's kernels
+    alone, the events' time less that of the copy alone). Returns the
+    kernels line's two rows, the garden workload's numbers, both
+    workloads' under "workloads"."""
+    per = {"binning": [], "binning_sort": []}
+    for name, (pre, args, kw) in binning_workloads().items():
+        tx, ty = args[0], args[1]
+        n, tiles = pre.tiles_touched.shape[0], tx * ty
+        before = binning.launches
+        got = binning.bin_gaussians(pre, *args, **kw)
+        check(binning.launches == before + 1,
+              f"binning {name}: {binning.launches - before} launches")
+        want = binning.bin_gaussians_reference(pre, *args, **kw)
+        for field in want._fields:
+            check(torch.equal(getattr(got, field), getattr(want, field)),
+                  f"binning {name}: {field} differs from the plain version")
+        pack = kw.get("pack_keys", False)
+        bits = binning.key_layout(tiles, pack)[0]
+        passes = binning.sort_passes(bits)
+        src = expansion_keys(pre, want, tiles, pack)
+        kept = src.numel()
+        check(kept == int(want.gcount.sum()),
+              f"binning {name}: {kept} kept, the plain version "
+              f"{int(want.gcount.sum())}")
+        live = torch.tensor([kept], dtype=torch.int32, device=src.device)
+        buf = torch.empty_like(src)
+        sorted_keys, _ = binning.radix_sort(buf.copy_(src), live, bits)
+        check(torch.equal(sorted_keys[:kept],
+                          torch.sort(src, stable=True).values),
+              f"binning {name}: the sort alone differs from torch.sort")
+
+        def kernels():
+            binning.bin_gaussians(pre, *args, **kw)
+
+        def plain():
+            binning.bin_gaussians_reference(pre, *args, **kw)
+
+        def sort():
+            binning.radix_sort(buf.copy_(src), live, bits)
+
+        def copy_only():
+            buf.copy_(src)
+
+        domain = (n * kw["dense_cap"] if kw.get("expand") == "dense"
+                  else args[2])
+        kcap = kw.get("packed_capacity") or args[2]
+        b_all, b_sort = binning_bytes(n, kept, kcap, tiles, passes,
+                                      4 if pack else 8,
+                                      kw.get("precise_cull", False))
+        sort_kernels = ("upsweep_kernel", "scan_kernel", "downsweep_kernel")
+        for kernel, fn, nbytes in (("binning", kernels, b_all),
+                                   ("binning_sort", sort, b_sort)):
+            if kernel == "binning":
+                ms = device_ms(fn, reps=20)
+                dispatch_ms = cuda_ms(fn, reps=20, warmup=2)
+                plain_ms = cuda_ms(plain, reps=3)
+                parts = timing.kernel_ms(
+                    profiled(lambda: [fn() for _ in range(20)], fn), 20)
+                print(f"binning {name} by kernel (ms a call): " + ", ".join(
+                    f"{re.sub(r'<.*$', '', k.split('(')[0]).split('::')[-1]}"
+                    f" {v:.4f}"
+                    for k, v in sorted(parts.items(), key=lambda kv: -kv[1])))
+            else:
+                events = profiled(lambda: [sort() for _ in range(20)], sort)
+                ms = sum(v for k, v in timing.kernel_ms(events, 20).items()
+                         if any(s in k for s in sort_kernels))
+                dispatch_ms = (cuda_ms(fn, reps=20, warmup=2)
+                               - cuda_ms(copy_only, reps=20, warmup=2))
+                plain_ms = cuda_ms(lambda: torch.sort(src, stable=True),
+                                   reps=5)
+            bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            print(f"{kernel} {name}: {n} Gaussians, {tiles} tiles, "
+                  f"{int(want.num_rendered)} instances, {kept} kept, "
+                  f"{int(want.dropped)} dropped, domain "
+                  f"{domain}, {bits}-bit key in {passes} passes: device "
+                  f"time per call (profiler, 20 calls) {ms:.4f} ms, "
+                  f"back-to-back calls (CUDA events) {dispatch_ms:.4f} ms, "
+                  f"{'plain version' if kernel == 'binning' else 'torch.sort of the kept keys'} "
+                  f"{plain_ms:.4f} ms; bound {bound_ms:.4f} ms by bytes "
+                  f"({nbytes} B), {100 * bound_ms / ms:.1f} % of it")
+            per[kernel].append({
+                "workload": name, "gaussians": n, "kept": kept,
+                "key_bits": bits, "passes": passes, "ms": ms,
+                "dispatch_ms": dispatch_ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms})
+        del got, want, src, buf, sorted_keys
+        torch.cuda.empty_cache()
+    rows = {}
+    for kernel, source in (("binning", "binning.cu"),
+                           ("binning_sort", "binning_sort.cuh")):
+        g = per[kernel][0]
+        row = kernel_row(kernel, source, "none: the JAX package's binning "
+                         "is XLA (ops/binning.py)", 0.0, g["ms"],
+                         g["dispatch_ms"], g["plain_ms"], g["bound_ms"], 0.0)
         row["workloads"] = per[kernel]
         rows[kernel] = row
     return rows
@@ -1447,7 +1628,7 @@ def phase_serve(params, state, rows):
 
     torch.cuda.synchronize()
     blend_seq.launches = blend_seq.bwd_launches = 0
-    pp.launches = pp.bwd_launches = 0
+    pp.launches = pp.bwd_launches = binning.launches = 0
     outs = [render(cam, loaded, lstate.alive, deg, bg, SETTINGS)
             for cam in cams]
     torch.cuda.synchronize()
@@ -1458,9 +1639,15 @@ def phase_serve(params, state, rows):
     check(pre == len(VIEWS) and pp.bwd_launches == 0,
           f"{len(VIEWS)} renders launched the preprocess forward {pre} and "
           f"its backward {pp.bwd_launches} times")
+    bins = binning.launches
+    check(bins == len(VIEWS),
+          f"{len(VIEWS)} renders ran the binning kernels {bins} times")
     rows["preprocess_fwd"]["serve_launches"] = pre
-    print(f"serve: K1 launched {launches} times and the preprocess forward "
-          f"{pre} times for {len(VIEWS)} renders")
+    rows["binning"]["serve_launches"] = bins
+    rows["binning_sort"]["serve_launches"] = bins
+    print(f"serve: K1 launched {launches} times, the preprocess forward "
+          f"{pre} and the binning kernels {bins} times for {len(VIEWS)} "
+          f"renders")
     for angle, out in zip(VIEWS, outs):
         img = out["render"]
         check(img.shape == (3, H, W), f"image shape {tuple(img.shape)}")
@@ -1540,7 +1727,7 @@ def phase_train(params, state, rows):
 
     torch.cuda.synchronize()
     blend_seq.launches = blend_seq.bwd_launches = 0
-    pp.launches = pp.bwd_launches = optim.launches = 0
+    pp.launches = pp.bwd_launches = optim.launches = binning.launches = 0
     step_ms, metrics = [], []
     for i in range(TRAIN_STEPS):
         t0 = time.perf_counter()
@@ -1562,6 +1749,10 @@ def phase_train(params, state, rows):
     check(adam == TRAIN_STEPS,
           f"{TRAIN_STEPS} steps launched the Adam kernel {adam} times")
     rows["adam_update"]["launches"] = adam
+    bins = binning.launches
+    check(bins == TRAIN_STEPS,
+          f"{TRAIN_STEPS} steps ran the binning kernels {bins} times")
+    rows["binning"]["launches"] = rows["binning_sort"]["launches"] = bins
     loss = [m["loss"].item() for m in metrics]
     check(all(math.isfinite(x) for x in loss), f"loss not finite: {loss}")
     check(all(int(m["dropped"]) == 0 for m in metrics), "instances dropped")
@@ -1575,7 +1766,8 @@ def phase_train(params, state, rows):
     check(last < first, f"loss did not fall: first 5 {first}, last 5 {last}")
     step = statistics.median(step_ms[2:])
     print(f"train: K1 {k1}, K2 {k2}, preprocess forward {pre} and backward "
-          f"{pre_bwd}, Adam {adam} launches in {TRAIN_STEPS} steps; loss "
+          f"{pre_bwd}, Adam {adam}, binning {bins} launches in {TRAIN_STEPS} "
+          f"steps; loss "
           f"{loss[0]:.5f} -> {loss[-1]:.5f} (mean of first 5 {first:.5f}, "
           f"last 5 {last:.5f}); psnr {metrics[0]['psnr'].item():.3f} -> "
           f"{metrics[-1]['psnr'].item():.3f}; num_rendered "
@@ -2695,8 +2887,8 @@ def phase_neural_serve(params, state):
 
 def phase_neural_train(params, state, rows):
     """10 ``NeuralTrainer(sw=2)`` steps towards the classic render (K1) of
-    the same cloud. Puts the launches of K3 and of the denoiser's pair in
-    them into ``rows``."""
+    the same cloud. Puts the launches of K3, of the denoiser's pair and of
+    the binning kernels in them into ``rows``."""
     cam = demo.demo_camera(W, H)
     with torch.no_grad():
         gt = render(cam, params, state.alive, NEURAL_SH,
@@ -2707,7 +2899,7 @@ def phase_neural_train(params, state, rows):
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    zbuffer_pallas.launches = optim.launches = 0
+    zbuffer_pallas.launches = optim.launches = binning.launches = 0
     denoise_ops.launches = denoise_ops.bwd_launches = 0
     step_ms, metrics = [], []
     for _ in range(NEURAL_STEPS):
@@ -2722,6 +2914,12 @@ def phase_neural_train(params, state, rows):
                         ("backward", denoise_ops.bwd_launches)):
         check(count == NEURAL_STEPS, f"{NEURAL_STEPS} steps launched the "
               f"denoiser's {name} kernel {count} times")
+    # the z-buffer bins once a step
+    bins = binning.launches
+    check(bins == NEURAL_STEPS,
+          f"{NEURAL_STEPS} steps ran the binning kernels {bins} times")
+    rows["binning"]["neural_launches"] = bins
+    rows["binning_sort"]["neural_launches"] = bins
     # the features in one launch, the decoders' leaves in MAX_GROUPS a
     # launch
     n_leaves = len(neural_loop.decoder_leaves(trainer.ts.net_params))
@@ -2745,8 +2943,9 @@ def phase_neural_train(params, state, rows):
     step = statistics.median(step_ms[2:])
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"neural train: NeuralTrainer(sw=2), K3 {launches}, denoiser "
-          f"{denoise_ops.launches} + {denoise_ops.bwd_launches} and Adam "
-          f"{optim.launches} launches in {NEURAL_STEPS} steps; loss {loss[0]:.5f} -> {loss[-1]:.5f} (mean "
+          f"{denoise_ops.launches} + {denoise_ops.bwd_launches}, binning "
+          f"{bins} and Adam {optim.launches} launches in {NEURAL_STEPS} "
+          f"steps; loss {loss[0]:.5f} -> {loss[-1]:.5f} (mean "
           f"of first 3 {first:.5f}, last 3 {last:.5f}); psnr "
           f"{metrics[0]['psnr'].item():.3f} -> "
           f"{metrics[-1]['psnr'].item():.3f}; hit rate "
@@ -4104,6 +4303,7 @@ def main():
     rows = phase_preprocess(params, state)
     rows["adam_update"] = phase_adam()
     rows.update(phase_denoise())
+    rows.update(phase_binning())
     rows.update(K1=phase_k1_parity(params, state),
                 K2=phase_k2_parity(params, state))
     phase_small_reference()

@@ -6,7 +6,8 @@ and flags, so a changed source rebuilds and an unchanged one loads at once.
 Several sources build in parallel, one nvcc each. Nothing here runs at
 import time. Each library exports ``<name>(..., stream)``, which launches
 and returns ``cudaGetLastError()``, and ``<name>_error(code)``, its message;
-``launch`` calls the first and raises with the second.
+``launch`` calls the first and raises with the second. A library may export
+further entries of that form, which share its ``_error``.
 """
 
 from __future__ import annotations
@@ -92,13 +93,15 @@ def load(name: str) -> ctypes.CDLL:
 
 
 @functools.cache
-def _entry(name: str, argtypes: tuple):
-    """(launch function, error-message function) of kernel ``name``."""
-    lib = load(name)
+def _entry(name: str, argtypes: tuple, library: str | None = None):
+    """(launch function, error-message function) of entry ``name`` of
+    ``library`` (by default kernel ``name``'s own)."""
+    library = library or name
+    lib = load(library)
     fn = getattr(lib, name)
     fn.argtypes = list(argtypes)
     fn.restype = ctypes.c_int
-    err = getattr(lib, name + "_error")
+    err = getattr(lib, library + "_error")
     err.argtypes = [ctypes.c_int]
     err.restype = ctypes.c_char_p
     return fn, err
@@ -112,14 +115,15 @@ def current_stream(device: torch.device) -> int:
 
 
 def launch(name: str, argtypes: tuple, device: torch.device, *args,
-           stream: int | None = None):
-    """Launch kernel ``name`` on ``device``'s current stream (or on
-    ``stream``, a raw stream of that device); ``argtypes`` are the ctypes of
-    ``args`` and a last ``c_void_p``, the stream. Switches the current
-    device only when ``device`` is not it: a launch goes to the current
-    device, and a stream of another device is refused there. Raises
-    RuntimeError if the launch is refused."""
-    fn, err = _entry(name, argtypes)
+           stream: int | None = None, library: str | None = None):
+    """Launch kernel ``name`` (an entry of ``library``, by default its own)
+    on ``device``'s current stream (or on ``stream``, a raw stream of that
+    device); ``argtypes`` are the ctypes of ``args`` and a last
+    ``c_void_p``, the stream. Switches the current device only when
+    ``device`` is not it: a launch goes to the current device, and a stream
+    of another device is refused there. Raises RuntimeError if the launch is
+    refused."""
+    fn, err = _entry(name, argtypes, library)
     if stream is None:
         stream = current_stream(device)
     if device.index == torch.cuda.current_device():

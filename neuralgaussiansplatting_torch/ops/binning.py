@@ -4,21 +4,39 @@ Port of ``ops/binning.py``. The contract is the same, field for field: every
 Gaussian is duplicated into one instance per tile of its rect (optionally
 culled per instance), instances are sorted by [tile | depth], and each
 tile's run is re-packed into a segment aligned to the blend chunk, with
-``max_per_tile`` and ``capacity`` caps and their monitors. The JAX package's
-TPU layout devices (single-column scatter expansion, barrel-shift run
-gather, blocked cumsum) become their plain equivalents here: a
-``searchsorted`` owner lookup, an index gather and ``torch.cumsum``.
+``max_per_tile`` and ``capacity`` caps and their monitors.
+
+``bin_gaussians`` on CUDA tensors runs the binning kernels (one library,
+``csrc/binning.cu``): an expansion whose work follows the kept instances, a
+stable radix sort over the key's live bits and the ranges and re-pack, with
+no host read; its ``Instances`` are the plain version's bits. ``ValueError``
+for inputs the kernels do not take; never a fallback. ``launches`` counts
+those calls. On CPU tensors it is the plain version,
+``bin_gaussians_reference``, where the JAX package's TPU layout devices
+(single-column scatter expansion, barrel-shift run gather, blocked cumsum)
+become their plain equivalents: a ``searchsorted`` owner lookup, an index
+gather and ``torch.cumsum``.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import torch
 
+from neuralgaussiansplatting_torch.ops import _build
 from neuralgaussiansplatting_torch.ops.preprocess import Preprocessed
 
 _INT32_MAX = 2 ** 31 - 1
+# the expansion's Gaussians a block, the sort's items a block and digit
+# width (csrc/binning.cu refuses other values)
+_GAUSSIANS_PER_BLOCK = 2048
+_SORT_TILE = 2048
+_RADIX_BITS = 8
+
+launches = 0  # bin_gaussians calls that ran the kernels, since the caller
+              # last set it to 0
 
 
 class Instances(NamedTuple):
@@ -73,7 +91,183 @@ def bin_gaussians(pre: Preprocessed, tiles_x: int, tiles_y: int,
                   height: int | None = None,
                   expand: str = "scatter",
                   dense_cap: int = 16) -> Instances:
-    """Expand Gaussians into depth-sorted, chunk-aligned per-tile instances.
+    """Expand Gaussians into depth-sorted, chunk-aligned per-tile instances:
+    the binning kernels for CUDA tensors, the plain version
+    (``bin_gaussians_reference``, whose docstring gives the options) for
+    CPU tensors."""
+    if expand not in ("scatter", "dense"):
+        raise ValueError(f"expand must be 'scatter' or 'dense', got {expand!r}")
+    width = tiles_x * block_x if width is None else width
+    height = tiles_y * block_y if height is None else height
+    dev = pre.tiles_touched.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"no binning kernels for device {dev}")
+    if dev.type == "cpu":
+        return bin_gaussians_reference(
+            pre, tiles_x, tiles_y, capacity, max_per_tile, align,
+            pack_keys=pack_keys, packed_capacity=packed_capacity,
+            precise_cull=precise_cull, block_x=block_x, block_y=block_y,
+            width=width, height=height, expand=expand, dense_cap=dense_cap)
+    return _bin_on_card(pre, tiles_x, tiles_y, capacity, max_per_tile, align,
+                        pack_keys, packed_capacity, precise_cull, block_x,
+                        block_y, width, height, expand, dense_cap)
+
+
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_BINNING_ARGS = (_P,) * 7 + (_LL,) + (_I,) * 6 + (_LL,) + (_I,) * 6 \
+    + (_LL, _I, _I, _LL, _I, _I) + (_P,) * 19 + (_P,)
+_SORT_ARGS = (_P,) * 7 + (_LL,) + (_I,) * 4 + (_P,)
+
+
+def _card_input(t: torch.Tensor, name: str, dtype: torch.dtype,
+                shape: tuple, device: torch.device) -> torch.Tensor:
+    if t.device != device:
+        raise ValueError(f"{name} must be on {device}, got {t.device}")
+    if t.dtype != dtype or tuple(t.shape) != shape:
+        raise ValueError(f"the binning kernels take {name} as {shape} "
+                         f"{dtype}, got {tuple(t.shape)} {t.dtype}")
+    return t.detach().contiguous()
+
+
+def card_inputs(pre: Preprocessed, precise_cull: bool) -> tuple:
+    """(tiles_touched, rect_min, rect_max, depths, conic, opacity, means2d)
+    as the kernels read them: detached, contiguous, on ``tiles_touched``'s
+    device, int32 / float32 of the plain version's shapes; the last three
+    are None without ``precise_cull``, which alone reads them. Raises
+    ``ValueError`` otherwise."""
+    dev = pre.tiles_touched.device
+    n = pre.tiles_touched.shape[0]
+    i32, f32 = torch.int32, torch.float32
+    want = [("tiles_touched", i32, (n,)), ("rect_min", i32, (n, 2)),
+            ("rect_max", i32, (n, 2)), ("depths", f32, (n,))]
+    if precise_cull:
+        want += [("conic", f32, (n, 3)), ("opacity", f32, (n,)),
+                 ("means2d", f32, (n, 2))]
+    out = [_card_input(getattr(pre, name), name, dtype, shape, dev)
+           for name, dtype, shape in want]
+    return tuple(out) + (None,) * (7 - len(out))
+
+
+def key_layout(num_tiles: int, pack_keys: bool) -> tuple[int, int]:
+    """(bits, tile shift) of the kernels' sort key, (tile << shift) +
+    (depth_bits >> (31 - shift)): the exact key over the tiles' bits above
+    31 depth bits, or the packed 31-bit key."""
+    if pack_keys:
+        return 31, 31 - max(int(num_tiles + 1).bit_length(), 1)
+    return 31 + int(num_tiles - 1).bit_length(), 31
+
+
+def sort_passes(bits: int) -> int:
+    """The radix sort's passes for a key of ``bits`` bits."""
+    return -(-bits // _RADIX_BITS)
+
+
+def _sort_buffers(keys: torch.Tensor) -> tuple:
+    """The sort's second key buffer, its two value buffers ((2, domain)
+    int32), its per-(digit, block) counts and its digit totals, for
+    ``keys``."""
+    domain = keys.shape[-1]
+    counts_len = (1 << _RADIX_BITS) * -(-domain // _SORT_TILE)
+    scratch = torch.empty(2 * domain + counts_len + (1 << _RADIX_BITS),
+                          dtype=torch.int32, device=keys.device)
+    return (torch.empty_like(keys), scratch[:2 * domain].view(2, domain),
+            scratch[2 * domain:2 * domain + counts_len],
+            scratch[2 * domain + counts_len:])
+
+
+def radix_sort(keys: torch.Tensor, live: torch.Tensor,
+               bits: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The binning kernels' sort alone (``csrc/binning.cu``'s
+    ``radix_sort``): the first ``live[0]`` of ``keys`` (a device int32,
+    (1,)) sorted by their low ``bits`` bits, read as unsigned, stably;
+    returns (sorted keys, their indices as int32), each as long as ``keys``
+    (int64 or int32, 1-D, contiguous), with unspecified entries past
+    ``live[0]``. Clobbers ``keys``."""
+    dev, domain = keys.device, keys.shape[0]
+    if keys.dtype not in (torch.int32, torch.int64) or keys.dim() != 1 \
+            or not 1 <= domain <= _INT32_MAX or not keys.is_contiguous() \
+            or live.dtype != torch.int32 or live.device != dev:
+        raise ValueError("radix_sort takes contiguous 1-D int32 or int64 "
+                         "keys (at most 2^31 - 1) and an int32 count on "
+                         "their device")
+    passes = sort_passes(bits)
+    other, vals, counts, totals = _sort_buffers(keys)
+    _build.launch(
+        "radix_sort", _SORT_ARGS, dev, keys.data_ptr(), other.data_ptr(),
+        vals[0].data_ptr(), vals[1].data_ptr(), counts.data_ptr(),
+        totals.data_ptr(), live.data_ptr(), domain, bits,
+        int(keys.dtype == torch.int64), passes, _SORT_TILE,
+        library="binning")
+    return (keys, vals[0]) if passes % 2 == 0 else (other, vals[1])
+
+
+def _bin_on_card(pre, tiles_x, tiles_y, capacity, max_per_tile, align,
+                 pack_keys, packed_capacity, precise_cull, block_x, block_y,
+                 width, height, expand, dense_cap) -> Instances:
+    global launches
+    dev = pre.tiles_touched.device
+    n = pre.tiles_touched.shape[0]
+    num_tiles = tiles_x * tiles_y
+    dense = expand == "dense"
+    domain = n * dense_cap if dense else capacity
+    kcap = capacity if packed_capacity is None else packed_capacity
+    if not (1 <= n < _INT32_MAX and 1 <= num_tiles < _INT32_MAX
+            and 1 <= domain <= _INT32_MAX and 1 <= kcap <= _INT32_MAX
+            and dense_cap >= 1 and align >= 1):
+        raise ValueError(
+            f"the binning kernels take 1 <= n, tiles < 2^31, an expansion "
+            f"domain and a packed capacity in [1, 2^31), dense_cap >= 1 and "
+            f"align >= 1; got n {n}, {num_tiles} tiles, domain {domain}, "
+            f"packed capacity {kcap}, dense_cap {dense_cap}, align {align}")
+    ins = card_inputs(pre, precise_cull)
+    bits, tile_shift = key_layout(num_tiles, pack_keys)
+    i32 = torch.int32
+    blocks = -(-n // _GAUSSIANS_PER_BLOCK)
+    parts = torch.empty(3 * blocks + 4, dtype=torch.int64, device=dev)
+    keys = torch.empty(domain, dtype=i32 if pack_keys else torch.int64,
+                       device=dev)
+    other, vals, counts, totals = _sort_buffers(keys)
+    small = torch.empty(domain + num_tiles + 2, dtype=i32, device=dev)
+    gid_of, tile_lo, live = small[:domain], small[domain:-1], small[-1:]
+    gstart, gcount = torch.empty((2, n), dtype=i32, device=dev)
+    tile_start, tile_count = torch.empty((2, num_tiles), dtype=i32,
+                                         device=dev)
+    gid, eid = torch.empty((2, kcap), dtype=i32, device=dev)
+    valid = torch.empty(kcap, dtype=torch.bool, device=dev)
+    monitors = torch.empty(5, dtype=i32, device=dev)
+    _build.launch(
+        "binning", _BINNING_ARGS, dev,
+        *(None if t is None else t.data_ptr() for t in ins), n, tiles_x,
+        tiles_y, block_x, block_y, width, height, capacity, int(dense),
+        dense_cap, int(precise_cull), int(not pack_keys), tile_shift, bits,
+        kcap, min(max_per_tile, _INT32_MAX), align, domain,
+        _GAUSSIANS_PER_BLOCK, _SORT_TILE,
+        *(t.data_ptr() for t in (
+            parts[:-4], parts[-4:], live, keys, other, vals[0], vals[1],
+            counts, totals, gid_of, tile_lo, gcount, gstart, tile_start,
+            tile_count, gid, valid, eid, monitors)))
+    launches += 1
+    num_rendered, max_tile_load, aligned_demand, dropped, culled = \
+        monitors.unbind()
+    return Instances(gid=gid, valid=valid, tile_start=tile_start,
+                     tile_count=tile_count, num_rendered=num_rendered,
+                     max_tile_load=max_tile_load,
+                     aligned_demand=aligned_demand, eid=eid, gstart=gstart,
+                     gcount=gcount, dropped=dropped, culled=culled)
+
+
+def bin_gaussians_reference(pre: Preprocessed, tiles_x: int, tiles_y: int,
+                            capacity: int, max_per_tile: int, align: int,
+                            pack_keys: bool = False,
+                            packed_capacity: int | None = None,
+                            precise_cull: bool = False,
+                            block_x: int = 16, block_y: int = 16,
+                            width: int | None = None,
+                            height: int | None = None,
+                            expand: str = "scatter",
+                            dense_cap: int = 16) -> Instances:
+    """The plain version: expand Gaussians into depth-sorted, chunk-aligned
+    per-tile instances.
 
     ``pack_keys``: sort on one [tile | quantized depth] key that keeps the
     top (31 - bit_length(T+1)) depth bits; nearly coincident splats may swap

@@ -182,17 +182,14 @@ def point_footprints(means3d: torch.Tensor, cam: CameraParams,
     return depth, x0, y0, x1, y1, valid
 
 
-def zbuf_inputs(means3d: torch.Tensor, cam: CameraParams, capacity: int,
-                alive: torch.Tensor | None = None,
-                point_size: float = POINT_SIZE):
-    """K3's arguments for one view: the points' footprints binned into
-    32x32 tiles and gathered into the rect table.
-
-    Returns (args, depth, demand): ``args`` = (rects, instance depths,
-    tile_start, tile_count, tiles_x) as ``zbuf_tiles`` takes them, ``depth``
-    (N,) the points' view-space z and ``demand`` as ``compute_idxmap_tiled``
-    returns it.
-    """
+def binning_call(means3d: torch.Tensor, cam: CameraParams, capacity: int,
+                 alive: torch.Tensor | None = None,
+                 point_size: float = POINT_SIZE):
+    """The points' footprints as ``binning.bin_gaussians`` takes them for
+    K3, and the rest of that call: (pre, args, kw, footprints), where
+    ``bin_gaussians(pre, *args, **kw)`` bins them into 32x32 tiles and
+    ``footprints`` = (depth, x0, y0, x1, y1) are the points' view-space z
+    and pixel rects as ``point_footprints`` gives them."""
     means3d = means3d.detach()
     n = means3d.shape[0]
     w, h = cam.width, cam.height
@@ -222,10 +219,26 @@ def zbuf_inputs(means3d: torch.Tensor, cam: CameraParams, capacity: int,
         rect_max=torch.stack([tx1, ty1], -1),
         tiles_touched=torch.where(valid, (tx1 - tx0) * (ty1 - ty0), zero),
     )
-    inst = binning.bin_gaussians(
-        pre, tiles_x, tiles_y, capacity, max_per_tile=1 << 30, align=CHUNK,
-        pack_keys=True, precise_cull=False, block_x=BX, block_y=BY,
-        width=w, height=h)
+    kw = dict(max_per_tile=1 << 30, align=CHUNK, pack_keys=True,
+              precise_cull=False, block_x=BX, block_y=BY, width=w, height=h)
+    return pre, (tiles_x, tiles_y, capacity), kw, (depth, x0, y0, x1, y1)
+
+
+def zbuf_inputs(means3d: torch.Tensor, cam: CameraParams, capacity: int,
+                alive: torch.Tensor | None = None,
+                point_size: float = POINT_SIZE):
+    """K3's arguments for one view: the points' footprints binned into
+    32x32 tiles and gathered into the rect table.
+
+    Returns (args, depth, demand): ``args`` = (rects, instance depths,
+    tile_start, tile_count, tiles_x) as ``zbuf_tiles`` takes them, ``depth``
+    (N,) the points' view-space z and ``demand`` as ``compute_idxmap_tiled``
+    returns it.
+    """
+    pre, args, kw, (depth, x0, y0, x1, y1) = binning_call(
+        means3d, cam, capacity, alive, point_size)
+    inst = binning.bin_gaussians(pre, *args, **kw)
+    tiles_x = args[0]
 
     # per-instance rect and depth by inst.gid; padding slots (gid == N)
     # read the zero column, a rect that covers no pixel

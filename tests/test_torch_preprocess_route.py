@@ -17,6 +17,7 @@ import ctypes
 import os
 import shutil
 import subprocess
+import sys
 import types
 
 import numpy as np
@@ -371,15 +372,57 @@ def test_the_kernel_route_through_the_host_rows(host_rows, monkeypatch, deg,
         cases.assert_held(name, g, p, r, case["groups"])
 
 
+# MKL picks its code path from the CPU it finds, and its paths round a
+# float32 matrix product differently: its SSE path has no fused multiply-adds.
+# The host rows repeat the fused order that MKL's AVX2 path shares, and the
+# colour variant's case has a row within 1e-5 of a rounding boundary of the
+# plain version's ``points @ view.T``, so its integer fields follow the path.
+# MKL reads MKL_CBWR once, when it loads, so the cases run in a child process
+# that pins the AVX2 path, unless this process already has it pinned.
+_MKL_PATH = "AVX2"
+
+
+@pytest.fixture(scope="module")
+def colour_variant_child(request):
+    """The colour variant's cases run by pytest in a child process under
+    MKL_CBWR=AVX2: its report, or None when this process has that pin."""
+    if os.environ.get("MKL_CBWR") == _MKL_PATH:
+        return None
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("PYTEST_")}
+    env["MKL_CBWR"] = _MKL_PATH
+    test = f"{os.path.abspath(__file__)}::" \
+        "test_the_colour_variant_through_the_host_rows"
+    proc = subprocess.run(
+        [sys.executable, "-m", "pytest", test, "-q", "-rA",
+         "-p", "no:cacheprovider", "-p", "no:randomly", "-p", "no:xdist"],
+        env=env, cwd=str(request.config.rootpath), capture_output=True,
+        text=True, timeout=600)
+    return proc.stdout + proc.stderr
+
+
 @pytest.mark.parametrize("tight,offset", [(False, False), (True, True)],
                          ids=["square-plain", "tight-offset"])
-def test_the_colour_variant_through_the_host_rows(host_rows, monkeypatch,
-                                                  tight, offset):
+def test_the_colour_variant_through_the_host_rows(
+        request, colour_variant_child, tight, offset):
     """Precomputed colours through the kernels' route, the C entries run by
     the host rows at the colour variant's degree: the colours are the rgb
     output itself and take the upstream rgb gradient as it is; the other
     fields and gradients are held to the plain version given the same
-    colours, as the SH route's are; each counter moves once."""
+    colours, as the SH route's are; each counter moves once. Runs under
+    MKL's AVX2 path (see ``colour_variant_child``)."""
+    if colour_variant_child is None:
+        _colour_variant(request.getfixturevalue("host_rows"),
+                        request.getfixturevalue("monkeypatch"), tight,
+                        offset)
+        return
+    case = request.node.name[request.node.name.index("["):]
+    assert any(line.startswith("PASSED ") and line.endswith(case)
+               for line in colour_variant_child.splitlines()), \
+        colour_variant_child[-6000:]
+
+
+def _colour_variant(host_rows, monkeypatch, tight, offset):
     monkeypatch.setattr(pp, "takes_kernels", lambda *a, **k: True)
     monkeypatch.setattr(_build, "launch", host_launch(host_rows))
     cam, case = _case(3, seed=40)
