@@ -131,6 +131,99 @@ int launch(const BwdArgs& a, const Settings& s, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// The surfel variant (2D Gaussian Splatting): from the gradients of the
+// box's centre (n, 2), the transform (n, 9), the normal (n, 3) and rgb, the
+// gradients of the means, the two scales, the rotations, the SH rows and
+// the offset.
+struct SurfelBwdArgs {
+  const float* means;
+  const float* scales;  // (n, 2)
+  const float* rots;
+  const float* shs;
+  long long sh_stride;
+  const float* view;
+  const float* full_proj;
+  const float* campos;
+  const float* g_means2d;   // (n, 2)
+  const float* g_transmat;  // (n, 9)
+  const float* g_normal;    // (n, 3)
+  const float* g_rgb;       // (n, 3)
+  float* g_means;
+  float* g_scales;          // (n, 2)
+  float* g_rots;
+  float* g_shs;
+  float* g_offset;  // (n, 2) or null
+};
+
+template <int DEG>
+__global__ void __launch_bounds__(kRows, 4)
+preprocess_surfel_bwd_kernel(const SurfelBwdArgs a, const Settings s) {
+  constexpr int NC = DEG >= 0 ? 3 * (DEG + 1) * (DEG + 1) : 1;
+  constexpr int PITCH = NC | 1;
+  __shared__ __align__(16) float s_sh[kRows * PITCH];  // SH, then its grad
+  __shared__ __align__(16) float s_m[kRows * 3];   // means, then their grad
+  __shared__ __align__(16) float s_s[kRows * 2];   // scales, then their grad
+  __shared__ __align__(16) float s_gt[kRows * 9];
+  __shared__ __align__(16) float s_gn[kRows * 3];
+  __shared__ __align__(16) float s_gr[kRows * 3];
+  __shared__ float cam[kCam];
+
+  const long long base = static_cast<long long>(blockIdx.x) * kRows;
+  const int rows = static_cast<int>(min(static_cast<long long>(kRows),
+                                        s.n - base));
+  const int t = threadIdx.x;
+  load_camera(cam, a.view, a.full_proj, a.campos);
+  stage_in<3, 3>(s_m, a.means, base, rows, 3);
+  stage_in<2, 2>(s_s, a.scales, base, rows, 2);
+  stage_in<9, 9>(s_gt, a.g_transmat, base, rows, 9);
+  stage_in<3, 3>(s_gn, a.g_normal, base, rows, 3);
+  if constexpr (DEG >= 0) {
+    stage_in<3, 3>(s_gr, a.g_rgb, base, rows, 3);
+    stage_in<NC, PITCH>(s_sh, a.shs, base, rows, a.sh_stride);
+  }
+  const long long i = base + t;
+  float4 rot = make_float4(0.f, 0.f, 0.f, 0.f);
+  float2 gm = make_float2(0.f, 0.f);
+  if (t < rows) {
+    rot = load_row4(a.rots, i);
+    gm = __ldg(reinterpret_cast<const float2*>(a.g_means2d) + i);
+  }
+  __syncthreads();
+
+  if (t < rows) {
+    float m[3], sc[2];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) m[k] = s_m[3 * t + k];
+    sc[0] = s_s[2 * t];
+    sc[1] = s_s[2 * t + 1];
+    SurfelGrad g;
+    backward_surfel_row<DEG>(m, sc, rot, s_sh + t * PITCH, gm, s_gt + 9 * t,
+                             s_gn + 3 * t, s_gr + 3 * t, cam, s, g);
+#pragma unroll
+    for (int k = 0; k < 3; ++k) s_m[3 * t + k] = g.mean[k];
+    s_s[2 * t] = g.scale[0];
+    s_s[2 * t + 1] = g.scale[1];
+    reinterpret_cast<float4*>(a.g_rots)[i] =
+        make_float4(g.rot[0], g.rot[1], g.rot[2], g.rot[3]);
+    if (a.g_offset) reinterpret_cast<float2*>(a.g_offset)[i] = g.offset;
+  }
+  __syncthreads();
+  stage_out<3, 3>(a.g_means, s_m, base, rows, 3);
+  stage_out<2, 2>(a.g_scales, s_s, base, rows, 2);
+  if constexpr (DEG >= 0) {
+    stage_out<NC, PITCH>(a.g_shs, s_sh, base, rows, a.sh_stride);
+  }
+}
+
+template <int DEG>
+int launch_surfel(const SurfelBwdArgs& a, const Settings& s,
+                  cudaStream_t stream) {
+  const long long blocks = (s.n + kRows - 1) / kRows;
+  preprocess_surfel_bwd_kernel<DEG>
+      <<<static_cast<unsigned>(blocks), kRows, 0, stream>>>(a, s);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -189,6 +282,58 @@ int preprocess_bwd(const void* means, const void* scales, const void* rots,
     case 2: return launch<2>(a, s, st);
     case 3: return launch<3>(a, s, st);
     case kColors: return launch<kColors>(a, s, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The surfel variant: preprocess_surfel_fwd's inputs (the opacity and
+// offset values are not needed), the upstream gradients g_means2d (n, 2),
+// g_transmat (n, 9), g_normal (n, 3), g_rgb (n, 3); outputs g_means (n, 3),
+// g_scales (n, 2), g_rots (n, 4), g_shs (n, sh_stride) and g_offset (n, 2)
+// or null. sh_degree -1 (kColors) reads no SH or colour gradient and writes
+// no SH gradient.
+int preprocess_surfel_bwd(const void* means, const void* scales,
+                          const void* rots, const void* shs,
+                          long long sh_stride, int sh_degree,
+                          const void* view, const void* full_proj,
+                          const void* campos, long long n, int width,
+                          int height, float scale_modifier,
+                          const void* g_means2d, const void* g_transmat,
+                          const void* g_normal, const void* g_rgb,
+                          void* g_means, void* g_scales, void* g_rots,
+                          void* g_shs, void* g_offset, void* stream) {
+  if (n <= 0) return 0;
+  const SurfelBwdArgs a{static_cast<const float*>(means),
+                        static_cast<const float*>(scales),
+                        static_cast<const float*>(rots),
+                        static_cast<const float*>(shs),
+                        sh_stride,
+                        static_cast<const float*>(view),
+                        static_cast<const float*>(full_proj),
+                        static_cast<const float*>(campos),
+                        static_cast<const float*>(g_means2d),
+                        static_cast<const float*>(g_transmat),
+                        static_cast<const float*>(g_normal),
+                        static_cast<const float*>(g_rgb),
+                        static_cast<float*>(g_means),
+                        static_cast<float*>(g_scales),
+                        static_cast<float*>(g_rots),
+                        static_cast<float*>(g_shs),
+                        static_cast<float*>(g_offset)};
+  Settings s{};
+  s.n = n;
+  s.width = static_cast<float>(width);
+  s.height = static_cast<float>(height);
+  s.half_w = static_cast<float>(width * 0.5);
+  s.half_h = static_cast<float>(height * 0.5);
+  s.scale_modifier = scale_modifier;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (sh_degree) {
+    case 0: return launch_surfel<0>(a, s, st);
+    case 1: return launch_surfel<1>(a, s, st);
+    case 2: return launch_surfel<2>(a, s, st);
+    case 3: return launch_surfel<3>(a, s, st);
+    case kColors: return launch_surfel<kColors>(a, s, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

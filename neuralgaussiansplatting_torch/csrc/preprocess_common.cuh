@@ -210,6 +210,36 @@ __device__ __forceinline__ Projected project(const float* m, const float* cam,
   return p;
 }
 
+// The normalised quaternion q / sqrt(clamp_min(|q|^2, 1e-16)) and its
+// rotation matrix.
+struct Rotation {
+  float qn[4];
+  float qnorm;
+  bool qpass;
+  float R[9];  // row-major
+};
+
+__device__ __forceinline__ Rotation rotation_of(const float4 rot) {
+  Rotation o;
+  const float q[4] = {rot.x, rot.y, rot.z, rot.w};
+  const float sq = ((q[0] * q[0] + q[1] * q[1]) + q[2] * q[2]) + q[3] * q[3];
+  o.qpass = sq >= 1e-16f;
+  o.qnorm = sqrtf(t_clamp_min(sq, 1e-16f));
+#pragma unroll
+  for (int k = 0; k < 4; ++k) o.qn[k] = q[k] / o.qnorm;
+  const float r = o.qn[0], x = o.qn[1], y = o.qn[2], z = o.qn[3];
+  o.R[0] = 1.f - 2.f * (y * y + z * z);
+  o.R[1] = 2.f * (x * y - r * z);
+  o.R[2] = 2.f * (x * z + r * y);
+  o.R[3] = 2.f * (x * y + r * z);
+  o.R[4] = 1.f - 2.f * (x * x + z * z);
+  o.R[5] = 2.f * (y * z - r * x);
+  o.R[6] = 2.f * (x * z - r * y);
+  o.R[7] = 2.f * (y * z + r * x);
+  o.R[8] = 1.f - 2.f * (x * x + y * y);
+  return o;
+}
+
 // preprocess._cov2d_components: the normalised quaternion, the rotation,
 // Sigma3D, the clamped view-space point and the EWA 2D covariance, with the
 // intermediates the backward needs.
@@ -240,22 +270,13 @@ __device__ __forceinline__ Covariance covariance(const float* scale,
                                                  const Settings& s) {
   const float* V = cam;
   Covariance c;
-  const float q[4] = {rot.x, rot.y, rot.z, rot.w};
-  const float sq = ((q[0] * q[0] + q[1] * q[1]) + q[2] * q[2]) + q[3] * q[3];
-  c.qpass = sq >= 1e-16f;
-  c.qnorm = sqrtf(t_clamp_min(sq, 1e-16f));
+  const Rotation rt = rotation_of(rot);
+  c.qpass = rt.qpass;
+  c.qnorm = rt.qnorm;
 #pragma unroll
-  for (int k = 0; k < 4; ++k) c.qn[k] = q[k] / c.qnorm;
-  const float r = c.qn[0], x = c.qn[1], y = c.qn[2], z = c.qn[3];
-  c.R[0] = 1.f - 2.f * (y * y + z * z);
-  c.R[1] = 2.f * (x * y - r * z);
-  c.R[2] = 2.f * (x * z + r * y);
-  c.R[3] = 2.f * (x * y + r * z);
-  c.R[4] = 1.f - 2.f * (x * x + z * z);
-  c.R[5] = 2.f * (y * z - r * x);
-  c.R[6] = 2.f * (x * z - r * y);
-  c.R[7] = 2.f * (y * z + r * x);
-  c.R[8] = 1.f - 2.f * (x * x + y * y);
+  for (int k = 0; k < 4; ++k) c.qn[k] = rt.qn[k];
+#pragma unroll
+  for (int k = 0; k < 9; ++k) c.R[k] = rt.R[k];
   float s2[3];
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
@@ -400,7 +421,128 @@ __device__ __forceinline__ float sh_channel(const float* b, const float* sh,
   return r;
 }
 
-  
+// sh.sh_to_rgb_color of one row: eval_sh + 0.5, clamped at 0, into col;
+// nothing for precomputed colours (DEG = kColors).
+template <int DEG>
+__device__ __forceinline__ void sh_rgb(const float* m, const float* sh,
+                                       const float* cam, float* col) {
+  if constexpr (DEG >= 0) {
+    const Direction dr = direction(m, cam);
+    float b[16];  // the first (DEG + 1)^2 are used
+    sh_basis<DEG>(dr.x, dr.y, dr.z, b);
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch) {
+      col[ch] = t_clamp_min(sh_channel<DEG>(b, sh, ch) + 0.5f, 0.f);
+    }
+  }
+}
+
+// The way back through sh_rgb from the colour gradient gr: the SH
+// coefficients' gradient in place of `sh`'s (its own row only), the mean's
+// (through the view direction) added to g_m; nothing for DEG = kColors
+// (the upstream gradient is the colours' own, outside the kernel).
+template <int DEG>
+__device__ __forceinline__ void sh_rgb_backward(const float* m, float* sh,
+                                                const float* gr,
+                                                const float* cam,
+                                                float* g_m) {
+  constexpr int K = (DEG + 1) * (DEG + 1);
+  if constexpr (DEG >= 0) {
+    const Direction dr = direction(m, cam);
+    float b[16];
+    sh_basis<DEG>(dr.x, dr.y, dr.z, b);
+    float g_res[3];
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch) {
+      const float pre = sh_channel<DEG>(b, sh, ch) + 0.5f;
+      g_res[ch] = pre >= 0.f ? gr[ch] : 0.f;
+    }
+    float G[K];  // d loss / d b_l
+#pragma unroll
+    for (int l = 0; l < K; ++l) {
+      const float sg = (l == 1 || l == 3) ? -1.f : 1.f;
+      G[l] = sg * ((g_res[0] * sh[3 * l] + g_res[1] * sh[3 * l + 1]) +
+                   g_res[2] * sh[3 * l + 2]);
+#pragma unroll
+      for (int ch = 0; ch < 3; ++ch) {
+        sh[3 * l + ch] = sg * (b[l] * g_res[ch]);  // its own row only
+      }
+    }
+    if (DEG > 0) {
+      const float x = dr.x, y = dr.y, z = dr.z;
+      float gx = kC1 * G[3], gy = kC1 * G[1], gz = kC1 * G[2];
+      if (DEG > 1) {
+        const float xx = x * x, yy = y * y, zz = z * z;
+        gx += kC2_0 * y * G[4] - 2.f * kC2_2 * x * G[6] + kC2_3 * z * G[7] +
+              2.f * kC2_4 * x * G[8];
+        gy += kC2_0 * x * G[4] + kC2_1 * z * G[5] - 2.f * kC2_2 * y * G[6] -
+              2.f * kC2_4 * y * G[8];
+        gz += kC2_1 * y * G[5] + 4.f * kC2_2 * z * G[6] + kC2_3 * x * G[7];
+        if (DEG > 2) {
+          gx += 6.f * kC3_0 * x * y * G[9] + kC3_1 * y * z * G[10] -
+                2.f * kC3_2 * x * y * G[11] - 6.f * kC3_3 * x * z * G[12] +
+                kC3_4 * (4.f * zz - 3.f * xx - yy) * G[13] +
+                2.f * kC3_5 * x * z * G[14] + 3.f * kC3_6 * (xx - yy) * G[15];
+          gy += 3.f * kC3_0 * (xx - yy) * G[9] + kC3_1 * x * z * G[10] +
+                kC3_2 * (4.f * zz - xx - 3.f * yy) * G[11] -
+                6.f * kC3_3 * y * z * G[12] - 2.f * kC3_4 * x * y * G[13] -
+                2.f * kC3_5 * y * z * G[14] - 6.f * kC3_6 * x * y * G[15];
+          gz += kC3_1 * x * y * G[10] + 8.f * kC3_2 * y * z * G[11] +
+                kC3_3 * (6.f * zz - 3.f * xx - 3.f * yy) * G[12] +
+                8.f * kC3_4 * x * z * G[13] + kC3_5 * (xx - yy) * G[14];
+        }
+      }
+      // dirs = d / sqrt(clamp_min(|d|^2, 1e-16))
+      const float g_dir[3] = {gx, gy, gz};
+      const float dirs[3] = {dr.x, dr.y, dr.z};
+      float g_n = 0.f;
+#pragma unroll
+      for (int k = 0; k < 3; ++k) g_n -= g_dir[k] * (dirs[k] / dr.norm);
+      const float g_sq = dr.pass ? g_n / (2.f * dr.norm) : 0.f;
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        g_m[k] += g_dir[k] / dr.norm + g_sq * (2.f * dr.d[k]);
+      }
+    }
+  }
+}
+
+// The way back from the gradients gR of R's nine entries (row-major) to
+// the raw quaternion `rot`, through R of the normalised quaternion qn and
+// q / sqrt(clamp_min(|q|^2, 1e-16)) (qnorm, and qpass where |q|^2 passed
+// the guard).
+__device__ __forceinline__ void quat_backward(const float4 rot,
+                                              const float* qn, float qnorm,
+                                              bool qpass, const float* gR,
+                                              float* g_rot) {
+  const float qr = qn[0], qx = qn[1], qy = qn[2], qz = qn[3];
+  float g_q[4];
+  g_q[0] = 2.f * (((-qz * gR[1] + qy * gR[2]) + (qz * gR[3] - qx * gR[5])) +
+                  (-qy * gR[6] + qx * gR[7]));
+  g_q[1] = 2.f * (((qy * gR[1] + qz * gR[2]) +
+                   (qy * gR[3] - 2.f * qx * gR[4])) +
+                  ((-qr * gR[5] + qz * gR[6]) +
+                   (qr * gR[7] - 2.f * qx * gR[8])));
+  g_q[2] = 2.f * (((-2.f * qy * gR[0] + qx * gR[1]) +
+                   (qr * gR[2] + qx * gR[3])) +
+                  ((qz * gR[5] - qr * gR[6]) +
+                   (qz * gR[7] - 2.f * qy * gR[8])));
+  g_q[3] = 2.f * (((-2.f * qz * gR[0] - qr * gR[1]) +
+                   (qx * gR[2] + qr * gR[3])) +
+                  ((-2.f * qz * gR[4] + qy * gR[5]) +
+                   (qx * gR[6] + qy * gR[7])));
+  // q / sqrt(clamp_min(|q|^2, 1e-16))
+  const float q_in[4] = {rot.x, rot.y, rot.z, rot.w};
+  float g_qn = 0.f;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) g_qn -= g_q[k] * (qn[k] / qnorm);
+  const float g_qsq = qpass ? g_qn / (2.f * qnorm) : 0.f;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    g_rot[k] = g_q[k] / qnorm + g_qsq * (2.f * q_in[k]);
+  }
+}
+
 // One Gaussian's forward: every Preprocessed field but the opacity.
 struct RowOut {
   float2 means2d;  // with the offset's shift
@@ -459,15 +601,7 @@ __device__ __forceinline__ void forward_row(const float* m, const float* sc,
   // sh.sh_to_rgb_color: eval_sh + 0.5, clamped at 0 (none with
   // precomputed colours, DEG = kColors: they pass through)
   float col[3] = {0.f, 0.f, 0.f};
-  if constexpr (DEG >= 0) {
-    const Direction dr = direction(m, cam);
-    float b[16];  // the first (DEG + 1)^2 are used
-    sh_basis<DEG>(dr.x, dr.y, dr.z, b);
-#pragma unroll
-    for (int ch = 0; ch < 3; ++ch) {
-      col[ch] = t_clamp_min(sh_channel<DEG>(b, sh, ch) + 0.5f, 0.f);
-    }
-  }
+  sh_rgb<DEG>(m, sh, cam, col);
 
   o.means2d = make_float2(x, y);
   if (off) {
@@ -503,7 +637,6 @@ __device__ __forceinline__ void backward_row(const float* m, const float* sc,
                                              const float* gr,
                                              const float* cam,
                                              const Settings& s, RowGrad& g) {
-  constexpr int K = (DEG + 1) * (DEG + 1);
   const float* V = cam;
   const float* P = cam + 16;
   const Projected pr = project(m, cam, s);
@@ -617,97 +750,13 @@ __device__ __forceinline__ void backward_row(const float* m, const float* sc,
     g_sc[k] = g_s2 * (2.f * cv.sm[k]) * s.scale_modifier;
   }
 
-  // -- R of the normalised quaternion (r, x, y, z)
-  // (the gradients of R's nine entries, row-major, in gR)
-  const float qr = cv.qn[0], qx = cv.qn[1], qy = cv.qn[2], qz = cv.qn[3];
-  const float* gR = g_R;
-  float g_q[4];
-  g_q[0] = 2.f * (((-qz * gR[1] + qy * gR[2]) + (qz * gR[3] - qx * gR[5])) +
-                  (-qy * gR[6] + qx * gR[7]));
-  g_q[1] = 2.f * (((qy * gR[1] + qz * gR[2]) +
-                   (qy * gR[3] - 2.f * qx * gR[4])) +
-                  ((-qr * gR[5] + qz * gR[6]) +
-                   (qr * gR[7] - 2.f * qx * gR[8])));
-  g_q[2] = 2.f * (((-2.f * qy * gR[0] + qx * gR[1]) +
-                   (qr * gR[2] + qx * gR[3])) +
-                  ((qz * gR[5] - qr * gR[6]) +
-                   (qz * gR[7] - 2.f * qy * gR[8])));
-  g_q[3] = 2.f * (((-2.f * qz * gR[0] - qr * gR[1]) +
-                   (qx * gR[2] + qr * gR[3])) +
-                  ((-2.f * qz * gR[4] + qy * gR[5]) +
-                   (qx * gR[6] + qy * gR[7])));
-  // q / sqrt(clamp_min(|q|^2, 1e-16))
-  const float q_in[4] = {rot.x, rot.y, rot.z, rot.w};
-  float g_qn = 0.f;
-#pragma unroll
-  for (int k = 0; k < 4; ++k) g_qn -= g_q[k] * (cv.qn[k] / cv.qnorm);
-  const float g_qsq = cv.qpass ? g_qn / (2.f * cv.qnorm) : 0.f;
+  // -- R of the normalised quaternion, and the normalisation
   float g_rot[4];
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    g_rot[k] = g_q[k] / cv.qnorm + g_qsq * (2.f * q_in[k]);
-  }
+  quat_backward(rot, cv.qn, cv.qnorm, cv.qpass, g_R, g_rot);
 
   // -- rgb = clamp_min(eval_sh(dirs) + 0.5, 0); precomputed colours
   // (DEG = kColors) take the upstream gradient as it is, outside the kernel
-  if constexpr (DEG >= 0) {
-    const Direction dr = direction(m, cam);
-    float b[16];
-    sh_basis<DEG>(dr.x, dr.y, dr.z, b);
-    float g_res[3];
-#pragma unroll
-    for (int ch = 0; ch < 3; ++ch) {
-      const float pre = sh_channel<DEG>(b, sh, ch) + 0.5f;
-      g_res[ch] = pre >= 0.f ? gr[ch] : 0.f;
-    }
-    float G[K];  // d loss / d b_l
-#pragma unroll
-    for (int l = 0; l < K; ++l) {
-      const float sg = (l == 1 || l == 3) ? -1.f : 1.f;
-      G[l] = sg * ((g_res[0] * sh[3 * l] + g_res[1] * sh[3 * l + 1]) +
-                   g_res[2] * sh[3 * l + 2]);
-#pragma unroll
-      for (int ch = 0; ch < 3; ++ch) {
-        sh[3 * l + ch] = sg * (b[l] * g_res[ch]);  // its own row only
-      }
-    }
-    if (DEG > 0) {
-      const float x = dr.x, y = dr.y, z = dr.z;
-      float gx = kC1 * G[3], gy = kC1 * G[1], gz = kC1 * G[2];
-      if (DEG > 1) {
-        const float xx = x * x, yy = y * y, zz = z * z;
-        gx += kC2_0 * y * G[4] - 2.f * kC2_2 * x * G[6] + kC2_3 * z * G[7] +
-              2.f * kC2_4 * x * G[8];
-        gy += kC2_0 * x * G[4] + kC2_1 * z * G[5] - 2.f * kC2_2 * y * G[6] -
-              2.f * kC2_4 * y * G[8];
-        gz += kC2_1 * y * G[5] + 4.f * kC2_2 * z * G[6] + kC2_3 * x * G[7];
-        if (DEG > 2) {
-          gx += 6.f * kC3_0 * x * y * G[9] + kC3_1 * y * z * G[10] -
-                2.f * kC3_2 * x * y * G[11] - 6.f * kC3_3 * x * z * G[12] +
-                kC3_4 * (4.f * zz - 3.f * xx - yy) * G[13] +
-                2.f * kC3_5 * x * z * G[14] + 3.f * kC3_6 * (xx - yy) * G[15];
-          gy += 3.f * kC3_0 * (xx - yy) * G[9] + kC3_1 * x * z * G[10] +
-                kC3_2 * (4.f * zz - xx - 3.f * yy) * G[11] -
-                6.f * kC3_3 * y * z * G[12] - 2.f * kC3_4 * x * y * G[13] -
-                2.f * kC3_5 * y * z * G[14] - 6.f * kC3_6 * x * y * G[15];
-          gz += kC3_1 * x * y * G[10] + 8.f * kC3_2 * y * z * G[11] +
-                kC3_3 * (6.f * zz - 3.f * xx - 3.f * yy) * G[12] +
-                8.f * kC3_4 * x * z * G[13] + kC3_5 * (xx - yy) * G[14];
-        }
-      }
-      // dirs = d / sqrt(clamp_min(|d|^2, 1e-16))
-      const float g_dir[3] = {gx, gy, gz};
-      const float dirs[3] = {dr.x, dr.y, dr.z};
-      float g_n = 0.f;
-#pragma unroll
-      for (int k = 0; k < 3; ++k) g_n -= g_dir[k] * (dirs[k] / dr.norm);
-      const float g_sq = dr.pass ? g_n / (2.f * dr.norm) : 0.f;
-#pragma unroll
-      for (int k = 0; k < 3; ++k) {
-        g_m[k] += g_dir[k] / dr.norm + g_sq * (2.f * dr.d[k]);
-      }
-    }
-  }
+  sh_rgb_backward<DEG>(m, sh, gr, cam, g_m);
 
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
@@ -717,6 +766,241 @@ __device__ __forceinline__ void backward_row(const float* m, const float* sc,
 #pragma unroll
   for (int k = 0; k < 4; ++k) g.rot[k] = g_rot[k];
   g.offset = make_float2(gm.x * s.half_w, gm.y * s.half_h);
+}
+
+// ---------------------------------------------------------------------------
+// Surfels (2D Gaussian Splatting): preprocess.preprocess_surfels_reference
+// in its operation order.
+// ---------------------------------------------------------------------------
+
+constexpr float kSurfelCutoff2 = 9.f;          // the 3-sigma box, squared
+constexpr float kSurfelMinRadius = 2.121318f;  // 3 x 0.707106
+
+// A surfel's transform of (u, v, 1) to homogeneous pixels, T[0..2] = T_u,
+// T[3..5] = T_v, T[6..8] = T_w (before the offset's shift), its scaled
+// tangents, the view-space normal before the turn and the turn's sign.
+struct SurfelGeom {
+  Projected pr;
+  Rotation rt;
+  float sm[2];      // scale * modifier
+  float tang[2][3]; // s_u t_u, s_v t_v
+  float T[9];
+  float nv[3];      // R's third column in view space
+  float cos;        // -p_view . nv
+  float sign;       // 1 where cos > 0, else -1
+  float d, inv_d;   // the box's denominator and its guarded reciprocal
+  float f0, f2;     // 9 inv_d, -inv_d
+  float cx, cy;     // the box's centre
+};
+
+__device__ __forceinline__ float surfel_fdot(const SurfelGeom& g,
+                                             const float* a,
+                                             const float* b) {
+  return (g.f0 * (a[0] * b[0]) + g.f0 * (a[1] * b[1])) + g.f2 * (a[2] * b[2]);
+}
+
+__device__ __forceinline__ SurfelGeom surfel_geom(const float* m,
+                                                  const float* sc,
+                                                  const float4 rot,
+                                                  const float* cam,
+                                                  const Settings& s) {
+  const float* V = cam;
+  const float* P = cam + 16;
+  SurfelGeom g;
+  g.pr = project(m, cam, s);
+  g.rt = rotation_of(rot);
+  const float* R = g.rt.R;
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    g.sm[j] = sc[j] * s.scale_modifier;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) g.tang[j][k] = R[3 * k + j] * g.sm[j];
+  }
+  // the clip rows x, y, w of the columns u, v (the centre's are the
+  // projection's), then ndc2pix
+  const float hw = s.half_w, cw = (s.width - 1.f) * 0.5f;
+  const float hh = s.half_h, ch = (s.height - 1.f) * 0.5f;
+  const int rows[3] = {0, 1, 3};
+  float clip[3][3];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+#pragma unroll
+    for (int r = 0; r < 3; ++r) {
+      const float* Pr = P + 4 * rows[r];
+      clip[j][r] = (Pr[0] * g.tang[j][0] + Pr[1] * g.tang[j][1]) +
+                   Pr[2] * g.tang[j][2];
+    }
+  }
+  clip[2][0] = g.pr.ph0;
+  clip[2][1] = g.pr.ph1;
+  clip[2][2] = g.pr.ph3;
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    g.T[j] = clip[j][0] * hw + clip[j][2] * cw;
+    g.T[3 + j] = clip[j][1] * hh + clip[j][2] * ch;
+    g.T[6 + j] = clip[j][2];
+  }
+#pragma unroll
+  for (int r = 0; r < 3; ++r) {
+    g.nv[r] = (V[4 * r] * R[2] + V[4 * r + 1] * R[5]) + V[4 * r + 2] * R[8];
+  }
+  g.cos = -((g.pr.tx * g.nv[0] + g.pr.ty * g.nv[1]) + g.pr.tz * g.nv[2]);
+  g.sign = g.cos > 0.f ? 1.f : -1.f;
+  const float* tw = g.T + 6;
+  g.d = (kSurfelCutoff2 * (tw[0] * tw[0]) + kSurfelCutoff2 * (tw[1] * tw[1])) -
+        tw[2] * tw[2];
+  g.inv_d = g.d != 0.f ? 1.f / g.d : 0.f;
+  g.f0 = kSurfelCutoff2 * g.inv_d;
+  g.f2 = -g.inv_d;
+  g.cx = surfel_fdot(g, g.T, tw);
+  g.cy = surfel_fdot(g, g.T + 3, tw);
+  return g;
+}
+
+struct SurfelOut {
+  float2 centre;
+  float depth;
+  int radius;  // 0 where culled
+  int2 lo, hi;
+  int tiles;
+  float T[9];
+  float normal[3];
+  float rgb[3];
+};
+
+template <int DEG>
+__device__ __forceinline__ void forward_surfel_row(
+    const float* m, const float* sc, const float4 rot, float op,
+    const float2* off, const float* sh, const float* cam, const Settings& s,
+    SurfelOut& o) {
+  const SurfelGeom g = surfel_geom(m, sc, rot, cam, s);
+  const float hx = sqrtf(t_clamp_min(g.cx * g.cx - surfel_fdot(g, g.T, g.T),
+                                     1e-4f));
+  const float hy = sqrtf(
+      t_clamp_min(g.cy * g.cy - surfel_fdot(g, g.T + 3, g.T + 3), 1e-4f));
+  const float rad = ceilf(t_clamp_min(t_maximum(hx, hy), kSurfelMinRadius));
+  const float x = g.cx, y = g.cy;
+  const int rmin_x = clip_tile((x - rad) * s.inv_bx, s.tiles_x);
+  const int rmin_y = clip_tile((y - rad) * s.inv_by, s.tiles_y);
+  const int rmax_x = clip_tile((x + rad + s.block_x - 1.f) * s.inv_bx,
+                               s.tiles_x);
+  const int rmax_y = clip_tile((y + rad + s.block_y - 1.f) * s.inv_by,
+                               s.tiles_y);
+  const int area = (rmax_x - rmin_x) * (rmax_y - rmin_y);
+  const bool valid = g.pr.tz > 0.2f && g.d != 0.f && g.cos != 0.f &&
+                     area > 0 && op > 0.f;
+  o.centre = make_float2(x, y);
+  o.depth = g.pr.tz;
+  o.radius = valid ? static_cast<int>(rad) : 0;
+  o.lo = make_int2(rmin_x, rmin_y);
+  o.hi = make_int2(rmax_x, rmax_y);
+  o.tiles = valid ? area : 0;
+#pragma unroll
+  for (int k = 0; k < 9; ++k) o.T[k] = g.T[k];
+  if (off) {
+    o.T[2] = g.T[2] + (off->x * s.half_w) * g.T[8];
+    o.T[5] = g.T[5] + (off->y * s.half_h) * g.T[8];
+  }
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    o.normal[k] = g.nv[k] * g.sign;
+    o.rgb[k] = 0.f;
+  }
+  sh_rgb<DEG>(m, sh, cam, o.rgb);
+}
+
+// One surfel's backward from the gradients of its centre (gm), transform
+// (gT) and normal (gn), and of its rgb (gr): the mean's, the two scales',
+// the rotation's and the offset's, and the SH coefficients' in place of
+// `sh`'s.
+struct SurfelGrad {
+  float mean[3];
+  float scale[2];
+  float rot[4];
+  float2 offset;
+};
+
+template <int DEG>
+__device__ __forceinline__ void backward_surfel_row(
+    const float* m, const float* sc, const float4 rot, float* sh,
+    const float2 gm, const float* gT_in, const float* gn, const float* gr,
+    const float* cam, const Settings& s, SurfelGrad& o) {
+  const float* V = cam;
+  const float* P = cam + 16;
+  const SurfelGeom g = surfel_geom(m, sc, rot, cam, s);
+  const float* tu = g.T;
+  const float* tv = g.T + 3;
+  const float* tw = g.T + 6;
+  float gT[9];
+#pragma unroll
+  for (int k = 0; k < 9; ++k) gT[k] = gT_in[k];
+  // the offset's shift, (off * W/2) * T_w.z with T_w.z held
+  o.offset = make_float2((gT[2] * tw[2]) * s.half_w,
+                         (gT[5] * tw[2]) * s.half_h);
+
+  // -- the centre: c = (f . T_u T_w, f . T_v T_w), f = (9, 9, -1) inv_d
+  {
+    const float g_f0 = gm.x * ((tu[0] * tw[0]) + (tu[1] * tw[1])) +
+                       gm.y * ((tv[0] * tw[0]) + (tv[1] * tw[1]));
+    const float g_f2 = gm.x * (tu[2] * tw[2]) + gm.y * (tv[2] * tw[2]);
+    const float g_inv = kSurfelCutoff2 * g_f0 - g_f2;
+    const float rd = 1.f / g.d;
+    const float g_d = -(g.d != 0.f ? g_inv : 0.f) * (rd * rd);
+    const float f[3] = {g.f0, g.f0, g.f2};
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      gT[k] += gm.x * (f[k] * tw[k]);
+      gT[3 + k] += gm.y * (f[k] * tw[k]);
+      gT[6 + k] += gm.x * (f[k] * tu[k]) + gm.y * (f[k] * tv[k]);
+    }
+    gT[6] += g_d * (2.f * kSurfelCutoff2 * tw[0]);
+    gT[7] += g_d * (2.f * kSurfelCutoff2 * tw[1]);
+    gT[8] -= g_d * (2.f * tw[2]);
+  }
+
+  // -- ndc2pix, then the clip rows of the columns u, v and the centre
+  const float cw = (s.width - 1.f) * 0.5f, ch = (s.height - 1.f) * 0.5f;
+  const int rows[3] = {0, 1, 3};
+  float g_m[3] = {0.f, 0.f, 0.f};
+  float g_tang[2][3] = {{0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}};
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    const float gc[3] = {gT[j] * s.half_w, gT[3 + j] * s.half_h,
+                         (gT[j] * cw + gT[3 + j] * ch) + gT[6 + j]};
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      float acc = 0.f;
+#pragma unroll
+      for (int r = 0; r < 3; ++r) acc += P[4 * rows[r] + k] * gc[r];
+      if (j < 2) g_tang[j][k] = acc;
+      else g_m[k] = acc;
+    }
+  }
+
+  // -- the tangents s_j R[:, j] and the normal sign * V R[:, 2]
+  const float* R = g.rt.R;
+  float g_R[9];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    float g_sm = 0.f;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      g_R[3 * k + j] = g_tang[j][k] * g.sm[j];
+      g_sm += R[3 * k + j] * g_tang[j][k];
+    }
+    o.scale[j] = g_sm * s.scale_modifier;
+  }
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    g_R[3 * k + 2] = ((V[k] * (gn[0] * g.sign) + V[4 + k] * (gn[1] * g.sign)) +
+                      V[8 + k] * (gn[2] * g.sign));
+  }
+  quat_backward(rot, g.rt.qn, g.rt.qnorm, g.rt.qpass, g_R, o.rot);
+
+  // -- rgb from SH (none for DEG = kColors)
+  sh_rgb_backward<DEG>(m, sh, gr, cam, g_m);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) o.mean[k] = g_m[k];
 }
 
 }  // namespace preprocess

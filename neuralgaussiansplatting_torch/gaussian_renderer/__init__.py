@@ -1,6 +1,9 @@
 """Render API (port of the JAX package's ``gaussian_renderer``).
 
-``render`` is the classic 3DGS render, differentiable through K1/K2.
+``render`` is the classic 3DGS render, differentiable through K1/K2;
+given surfels (two scales a row) it renders them by ``render_surfel``,
+2D Gaussian Splatting's render through the surfel kernels, with the
+per-pixel normal, depth and distortion maps 2DGS trains on.
 ``render_scaffold`` renders Scaffold-GS's anchors: their neural Gaussians,
 decoded for the view, through the same rasterizer with precomputed
 colours.
@@ -47,8 +50,16 @@ def render(
     "viewspace_points", "visibility_filter", "radii", "final_t",
     "n_contrib" and the binning monitors. ``convert_shs_python`` /
     ``compute_cov3d_python`` compute SH->RGB / the 3D covariance in the
-    model layer and pass them in precomputed.
+    model layer and pass them in precomputed. Surfels (``params.scaling``
+    of two columns) go to ``render_surfel``, which takes neither.
     """
+    if params.scaling.shape[-1] == 2:
+        if compute_cov3d_python or override_color is not None:
+            raise ValueError("surfels take no precomputed covariance or "
+                             "override colour")
+        return render_surfel(cam, params, alive, active_sh_degree, bg_color,
+                             settings, scaling_modifier, means2d_offset,
+                             convert_shs_python)
     with timing.span("ngs.render"):
         if scaling_modifier != 1.0:
             settings = dataclasses.replace(settings,
@@ -80,6 +91,61 @@ def render(
         n = params.xyz.shape[0]
         return {
             "render": out.color,
+            "viewspace_points": (means2d_offset if means2d_offset is not None
+                                 else params.xyz.new_zeros((n, 2))),
+            "visibility_filter": out.radii > 0,
+            "radii": out.radii,
+            "final_t": out.final_t,
+            "n_contrib": out.n_contrib,
+            "num_rendered": out.num_rendered,
+            "max_per_tile": out.max_per_tile,
+            "aligned_demand": out.aligned_demand,
+            "dropped": out.dropped,
+            "culled": out.culled,
+        }
+
+
+def render_surfel(cam: CameraParams, params: gm.GaussianParams,
+                  alive: torch.Tensor, active_sh_degree: int,
+                  bg_color: torch.Tensor,
+                  settings: rast.RasterizeSettings = rast.RasterizeSettings(),
+                  scaling_modifier: float = 1.0,
+                  means2d_offset: torch.Tensor | None = None,
+                  convert_shs_python: bool = False):
+    """Render the surfels of ``params`` (2D Gaussian Splatting: two scales
+    a row, dead slots masked by ``alive``) through
+    ``rast.rasterize_surfels``.
+
+    Returns ``render``'s keys ("render", "viewspace_points" (the offset,
+    whose gradient is 2DGS's densification statistic),
+    "visibility_filter", "radii", "final_t", "n_contrib", the binning
+    monitors) and 2DGS's maps: "rend_alpha" (H, W), "rend_normal" (3, H,
+    W) in view space, "rend_depth" (H, W) the depth sum, "rend_median"
+    (H, W) and "rend_dist" (H, W) the distortion. Span "ngs.render"."""
+    with timing.span("ngs.render"):
+        if scaling_modifier != 1.0:
+            settings = dataclasses.replace(settings,
+                                           scale_modifier=scaling_modifier)
+        colors_precomp = None
+        if convert_shs_python:
+            colors_precomp = sh_ops.sh_to_rgb_color(
+                active_sh_degree, gm.get_features(params), params.xyz,
+                cam.campos)
+        out = rast.rasterize_surfels(
+            means3d=params.xyz, scales=gm.get_scaling(params),
+            rotations=gm.get_rotation(params),
+            opacities=gm.get_opacity(params, alive),
+            shs=gm.get_features(params), sh_degree=active_sh_degree,
+            cam=cam, bg=bg_color, settings=settings,
+            means2d_offset=means2d_offset, colors_precomp=colors_precomp)
+        n = params.xyz.shape[0]
+        return {
+            "render": out.color,
+            "rend_alpha": out.alpha,
+            "rend_normal": out.normal,
+            "rend_depth": out.depth,
+            "rend_median": out.median,
+            "rend_dist": out.dist,
             "viewspace_points": (means2d_offset if means2d_offset is not None
                                  else params.xyz.new_zeros((n, 2))),
             "visibility_filter": out.radii > 0,

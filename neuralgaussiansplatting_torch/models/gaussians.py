@@ -157,11 +157,14 @@ def _to_model(leaves: dict, n: int, capacity: int, device):
 
 def create_from_pcd(points: np.ndarray, colors: np.ndarray,
                     normals: np.ndarray, sh_degree: int,
-                    capacity: int | None = None, device="cuda"):
+                    capacity: int | None = None, device="cuda",
+                    surfel: bool = False):
     """(GaussianParams, GaussianState) from a point cloud.
 
     ``capacity`` defaults to the point count; a larger value leaves room for
-    densification.
+    densification. ``surfel`` makes 2D Gaussian Splatting's surfels: two
+    scales a row and rotations uniform in [0, 1) per component (2DGS's
+    ``torch.rand``), drawn from a generator of seed 0.
     """
     n = points.shape[0]
     capacity = capacity or n
@@ -172,9 +175,13 @@ def create_from_pcd(points: np.ndarray, colors: np.ndarray,
     features_dc = RGB2SH(np.asarray(colors, np.float32))
     features_rest = np.zeros((n, 3 * (k - 1)), np.float32)
     dist2 = np.maximum(knn.mean_sq_dist_3nn(points), 1e-7)
-    scales = np.log(np.sqrt(dist2))[:, None].repeat(3, axis=1)
-    rots = np.zeros((n, 4), np.float32)
-    rots[:, 0] = 1.0
+    scales = np.log(np.sqrt(dist2))[:, None].repeat(2 if surfel else 3,
+                                                     axis=1)
+    if surfel:
+        rots = np.random.default_rng(0).random((n, 4), np.float32)
+    else:
+        rots = np.zeros((n, 4), np.float32)
+        rots[:, 0] = 1.0
     init = np.full((n, 1), 0.1, np.float32)
     opacities = np.log(init / (1.0 - init))          # inverse_sigmoid(0.1)
 
@@ -312,9 +319,13 @@ def load_ply(path: str, capacity: int | None = None, device="cuda"):
 class GaussianModel:
     """Host-side holder of the (params, state) tensors, the SH warm-up
     counter (``active_sh_degree`` rises by one per ``oneup_sh_degree`` up to
-    ``max_sh_degree``) and the scene extent densification uses."""
+    ``max_sh_degree``) and the scene extent densification uses. ``surfel``
+    makes ``create_from_pcd`` build 2D Gaussian Splatting's surfels (two
+    scales a row); a model read from a file is what the file holds."""
 
-    def __init__(self, sh_degree: int = 3, device="cuda"):
+    def __init__(self, sh_degree: int = 3, device="cuda",
+                 surfel: bool = False):
+        self.surfel = surfel
         self.max_sh_degree = sh_degree
         self.active_sh_degree = 0
         self.params: GaussianParams | None = None
@@ -340,7 +351,7 @@ class GaussianModel:
         self.spatial_lr_scale = float(spatial_lr_scale)
         self.params, self.state = create_from_pcd(
             pcd.points, pcd.colors, pcd.normals, self.max_sh_degree,
-            capacity, device=self.device)
+            capacity, device=self.device, surfel=self.surfel)
 
     def capture(self) -> dict:
         """The model as a dict of ints, floats and host tensors (what

@@ -156,16 +156,18 @@ def assemble_image(per_tile: torch.Tensor, tiles_x: int, tiles_y: int,
     return img[..., 0] if squeeze else img
 
 
-def pack_instance_attrs_t(means2d, conic, opacity, rgb):
-    """Per-Gaussian attrs -> (9, N + 1) float32 columns; the last column is
-    the all-zero sentinel for padding instances."""
-    packed = torch.stack([
-        means2d[:, 0], means2d[:, 1],
-        conic[:, 0], conic[:, 1], conic[:, 2],
-        opacity,
-        rgb[:, 0], rgb[:, 1], rgb[:, 2],
-    ], dim=0).float()                                  # (9, N)
-    return torch.cat([packed, packed.new_zeros((PROWS, 1))], dim=1)
+def pack_instance_attrs_t(means2d, conic, opacity, rgb, *extra):
+    """Per-Gaussian attrs -> (R, N + 1) float32 columns; the last column is
+    the all-zero sentinel for padding instances. The rows are means2d's 2
+    columns, ``conic``'s (3 for the blend kernels' conic, 9 for a surfel's
+    transform), the opacity, rgb's 3 and then the columns of each of
+    ``extra`` ((N,) or (N, C)): R = 9 for the conic and no extra."""
+    cols = [means2d[:, 0], means2d[:, 1], *conic.unbind(1), opacity,
+            rgb[:, 0], rgb[:, 1], rgb[:, 2]]
+    for e in extra:
+        cols += e.unbind(1) if e.dim() == 2 else [e]
+    packed = torch.stack(cols, dim=0).float()          # (R, N)
+    return torch.cat([packed, packed.new_zeros((packed.shape[0], 1))], dim=1)
 
 
 def sum_rows_by_id(rows: torch.Tensor, ids: torch.Tensor,
@@ -187,15 +189,17 @@ def sum_rows_by_id(rows: torch.Tensor, ids: torch.Tensor,
                                 unsafe=True)
 
 
-def reduce_by_gaussian(cot9: torch.Tensor, gid: torch.Tensor,
+def reduce_by_gaussian(cot: torch.Tensor, gid: torch.Tensor,
                        n: int) -> torch.Tensor:
-    """(9, K) per-slot rows -> (9, n + 1) per-Gaussian sums.
+    """(R, K) per-slot rows -> (R, n + 1) per-Gaussian sums, R the table's
+    rows (9 for K1's, 18 for a surfel's).
 
     Slots with ``gid == n`` (padding) are left out, and column n (the
     sentinel) is zero. Each Gaussian's slots are added in slot order.
     """
-    sums = sum_rows_by_id(cot9.t(), gid, n)            # (n, 9)
-    return torch.cat([sums, sums.new_zeros((1, PROWS))]).t().contiguous()
+    sums = sum_rows_by_id(cot.t(), gid, n)             # (n, R)
+    return torch.cat([sums, sums.new_zeros((1, cot.shape[0]))]
+                     ).t().contiguous()
 
 
 class _PackGather(torch.autograd.Function):
@@ -214,19 +218,19 @@ class _PackGather(torch.autograd.Function):
 
 
 def pack_gather(packed_all: torch.Tensor, gid: torch.Tensor) -> torch.Tensor:
-    """(9, N + 1) packed table -> (9, K) per-instance columns by ``gid``,
-    differentiable with respect to ``packed_all``."""
+    """(R, N + 1) packed table -> (R, K) per-instance columns by ``gid``,
+    differentiable with respect to ``packed_all``, for any row count R."""
     return _PackGather.apply(packed_all, gid)
 
 
 def check_blend_inputs(packed, tile_start, tile_count, tiles_x, pix,
-                       *per_tile):
-    """Validate the blend kernels' common inputs; ``per_tile`` are (name,
-    tensor) pairs that must be (T, 5, pix) float32 on ``packed``'s
-    device."""
+                       *per_tile, rows: int = PROWS, channels: int = 5):
+    """Validate the blend kernels' common inputs: ``packed`` (rows, K)
+    float32; ``per_tile`` are (name, tensor) pairs that must be (T,
+    channels, pix) float32 on ``packed``'s device."""
     if packed.dtype != torch.float32 or packed.ndim != 2 \
-            or packed.shape[0] != PROWS:
-        raise ValueError(f"packed must be ({PROWS}, K) float32, got "
+            or packed.shape[0] != rows:
+        raise ValueError(f"packed must be ({rows}, K) float32, got "
                          f"{tuple(packed.shape)} {packed.dtype}")
     for name, a in (("tile_start", tile_start), ("tile_count", tile_count)):
         if a.dtype != torch.int32 or a.ndim != 1:
@@ -240,9 +244,11 @@ def check_blend_inputs(packed, tile_start, tile_count, tiles_x, pix,
         raise ValueError(f"{num_tiles} tile starts, {tile_count.shape[0]} "
                          f"counts, {tiles_x} tiles per row")
     for name, a in per_tile:
-        if a.dtype != torch.float32 or tuple(a.shape) != (num_tiles, 5, pix):
-            raise ValueError(f"{name} must be ({num_tiles}, 5, {pix}) "
-                             f"float32, got {tuple(a.shape)} {a.dtype}")
+        if (a.dtype != torch.float32
+                or tuple(a.shape) != (num_tiles, channels, pix)):
+            raise ValueError(f"{name} must be ({num_tiles}, {channels}, "
+                             f"{pix}) float32, got {tuple(a.shape)} "
+                             f"{a.dtype}")
         if a.device != packed.device:
             raise ValueError(f"{name} is on {a.device}, packed on "
                              f"{packed.device}")

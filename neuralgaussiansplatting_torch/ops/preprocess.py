@@ -401,6 +401,27 @@ def _ptr(t: torch.Tensor | None):
     return None if t is None else t.data_ptr()
 
 
+def _kernel_colours(n: int, shs, sh_degree: int, colors_precomp):
+    """(the kernels' degree, their flat (N, 3K) SH rows or None): the
+    colour variant's degree COLORS for precomputed colours, which pass
+    through; ValueError for colours, a degree or SH rows the kernels do
+    not take."""
+    if colors_precomp is not None:
+        if tuple(colors_precomp.shape) != (n, 3):
+            raise ValueError(f"colors must be ({n}, 3), got "
+                             f"{tuple(colors_precomp.shape)}")
+        return COLORS, None
+    if not 0 <= sh_degree <= 3:
+        raise ValueError(f"SH degree must be in 0..3, got {sh_degree}")
+    flat = shs.reshape(n, -1) if shs.dim() == 3 else shs
+    if (flat.dim() != 2 or flat.shape[1] % 3
+            or flat.shape[1] < 3 * (sh_degree + 1) ** 2):
+        raise ValueError(f"shs must hold (N, K, 3) coefficients with K "
+                         f">= {(sh_degree + 1) ** 2}, got "
+                         f"{tuple(shs.shape)}")
+    return sh_degree, _floats(flat, "shs", tuple(flat.shape))
+
+
 def takes_kernels(means3d: torch.Tensor,
                   cov3d_precomp: torch.Tensor | None = None,
                   colors_precomp: torch.Tensor | None = None) -> bool:
@@ -446,21 +467,7 @@ def preprocess_gaussians(
             means2d_offset=means2d_offset)
     n = means3d.shape[0]
     dev = means3d.device
-    if colors_precomp is not None:
-        if tuple(colors_precomp.shape) != (n, 3):
-            raise ValueError(f"colors must be ({n}, 3), got "
-                             f"{tuple(colors_precomp.shape)}")
-        sh_degree, flat = COLORS, None
-    elif not 0 <= sh_degree <= 3:
-        raise ValueError(f"SH degree must be in 0..3, got {sh_degree}")
-    else:
-        flat = shs.reshape(n, -1) if shs.dim() == 3 else shs
-        if (flat.dim() != 2 or flat.shape[1] % 3
-                or flat.shape[1] < 3 * (sh_degree + 1) ** 2):
-            raise ValueError(f"shs must hold (N, K, 3) coefficients with K "
-                             f">= {(sh_degree + 1) ** 2}, got "
-                             f"{tuple(shs.shape)}")
-        flat = _floats(flat, "shs", tuple(flat.shape))
+    sh_degree, flat = _kernel_colours(n, shs, sh_degree, colors_precomp)
     args = [_floats(means3d, "means3d", (n, 3)),
             _floats(scales, "scales", (n, 3)),
             _floats(rotations, "rotations", (n, 4)),
@@ -487,3 +494,284 @@ def preprocess_gaussians(
                         conic=conic, opacity=opacities, rgb=rgb,
                         rect_min=rect_min, rect_max=rect_max,
                         tiles_touched=tiles)
+
+
+# ---------------------------------------------------------------------------
+# Surfels (2D Gaussian Splatting)
+# ---------------------------------------------------------------------------
+
+# the 3-sigma cutoff of a surfel's bounding box, the radius floor of its
+# low-pass filter (3 x the filter's size, sqrt(2)/2 as the 2DGS rasterizer
+# writes it) and the view depth below which a surfel is not drawn
+SURFEL_CUTOFF = 3.0
+SURFEL_MIN_RADIUS = 3.0 * 0.707106
+# the C signatures of the surfel variant's entries (the last pointer is
+# the stream)
+_SFWD_ARGS = (_P, _P, _P, _P, _P, _LL, _I, _P, _P, _P, _P, _LL, _I, _I, _I,
+              _I, _I, _I, _F) + (_P,) * 10
+_SBWD_ARGS = (_P, _P, _P, _P, _LL, _I, _P, _P, _P, _LL, _I, _I, _F) \
+    + (_P,) * 10
+
+
+class PreprocessedSurfels(NamedTuple):
+    """Per-surfel screen-space quantities of one view. Binning reads the
+    depths, rects and tile counts, as it reads ``Preprocessed``'s."""
+
+    means2d: torch.Tensor        # (N, 2) centre of the 3-sigma box
+    depths: torch.Tensor         # (N,) view-space z
+    radii: torch.Tensor          # (N,) int32, 0 => culled
+    transmat: torch.Tensor       # (N, 9) rows T_u, T_v, T_w of the
+                                 # (u, v, 1) -> homogeneous pixel transform
+    normal: torch.Tensor         # (N, 3) view-space normal, to the camera
+    opacity: torch.Tensor        # (N,) activated opacity
+    rgb: torch.Tensor            # (N, 3) view-dependent color
+    rect_min: torch.Tensor       # (N, 2) int32 tile rect, inclusive
+    rect_max: torch.Tensor       # (N, 2) int32 tile rect, exclusive
+    tiles_touched: torch.Tensor  # (N,) int32
+
+
+def preprocess_surfels_reference(
+    means3d: torch.Tensor,
+    scales: torch.Tensor,
+    rotations: torch.Tensor,
+    opacities: torch.Tensor,
+    shs: torch.Tensor | None,
+    sh_degree: int,
+    cam: CameraParams,
+    block_x: int,
+    block_y: int,
+    scale_modifier: float = 1.0,
+    colors_precomp: torch.Tensor | None = None,
+    means2d_offset: torch.Tensor | None = None,
+) -> PreprocessedSurfels:
+    """Plain PyTorch version of ``preprocess_surfels``, on any device: the
+    tensor code the kernels repeat, differentiated by autograd."""
+    n = means3d.shape[0]
+    tiles_x = (cam.width + block_x - 1) // block_x
+    tiles_y = (cam.height + block_y - 1) // block_y
+    q = rotations / torch.sqrt(torch.clamp_min(
+        torch.sum(rotations * rotations, dim=-1, keepdim=True), 1e-16))
+    r, x, y, z = q[:, 0], q[:, 1], q[:, 2], q[:, 3]
+    R = [1 - 2 * (y * y + z * z), 2 * (x * y - r * z), 2 * (x * z + r * y),
+         2 * (x * y + r * z), 1 - 2 * (x * x + z * z), 2 * (y * z - r * x),
+         2 * (x * z - r * y), 2 * (y * z + r * x), 1 - 2 * (x * x + y * y)]
+    sm = scales * scale_modifier
+    tang = [[R[k] * sm[:, 0] for k in (0, 3, 6)],
+            [R[k] * sm[:, 1] for k in (1, 4, 7)]]
+    P = cam.full_proj
+    hom = proj.transform_points_4x4(means3d, P)
+    # the clip-space rows x, y, w of the columns u, v and the centre
+    clip = [[(P[row, 0] * t[0] + P[row, 1] * t[1]) + P[row, 2] * t[2]
+             for row in (0, 1, 3)] for t in tang]
+    clip.append([hom[:, 0], hom[:, 1], hom[:, 3]])
+    hw, cw = cam.width * 0.5, (cam.width - 1) * 0.5
+    hh, ch = cam.height * 0.5, (cam.height - 1) * 0.5
+    tu = [c[0] * hw + c[2] * cw for c in clip]
+    tv = [c[1] * hh + c[2] * ch for c in clip]
+    tw = [c[2] for c in clip]
+
+    p_view = proj.transform_points_4x3(means3d, cam.view)
+    V = cam.view
+    nv = [(V[row, 0] * R[2] + V[row, 1] * R[5]) + V[row, 2] * R[8]
+          for row in range(3)]
+    cos = -((p_view[:, 0] * nv[0] + p_view[:, 1] * nv[1])
+            + p_view[:, 2] * nv[2])
+    sign = torch.where(cos > 0, 1.0, -1.0)
+    normal = torch.stack([c * sign for c in nv], -1)
+
+    # the centre and half-size of the 3-sigma box (2DGS's compute_aabb)
+    c2 = SURFEL_CUTOFF * SURFEL_CUTOFF
+    d = (c2 * (tw[0] * tw[0]) + c2 * (tw[1] * tw[1])) - tw[2] * tw[2]
+    inv_d = torch.where(d != 0.0, 1.0 / d, 0.0)
+    f0, f2 = c2 * inv_d, -inv_d
+
+    def fdot(a, b):
+        return (f0 * (a[0] * b[0]) + f0 * (a[1] * b[1])) + f2 * (a[2] * b[2])
+
+    cx, cy = fdot(tu, tw), fdot(tv, tw)
+    means2d = torch.stack([cx, cy], -1)
+    with torch.no_grad():
+        hx = torch.sqrt(torch.clamp_min(cx * cx - fdot(tu, tu), 1e-4))
+        hy = torch.sqrt(torch.clamp_min(cy * cy - fdot(tv, tv), 1e-4))
+        radius = torch.ceil(torch.clamp_min(torch.maximum(hx, hy),
+                                            SURFEL_MIN_RADIUS))
+        rect_min, rect_max = proj.tile_rect(means2d, radius, tiles_x,
+                                            tiles_y, block_x, block_y)
+        area = ((rect_max[:, 0] - rect_min[:, 0])
+                * (rect_max[:, 1] - rect_min[:, 1]))
+        valid = ((p_view[:, 2] > 0.2) & (d != 0.0) & (cos != 0.0)
+                 & (area > 0) & (opacities > 0.0))
+        radii = torch.where(valid, radius, 0.0).to(torch.int32)
+        tiles = torch.where(valid, area, 0).to(torch.int32)
+
+    if means2d_offset is not None:
+        # the densification statistic of 2DGS: the gradient of T_u's and
+        # T_v's centre entries times the depth, in NDC units
+        tw2 = tw[2].detach()
+        tu[2] = tu[2] + (means2d_offset[:, 0] * hw) * tw2
+        tv[2] = tv[2] + (means2d_offset[:, 1] * hh) * tw2
+    transmat = torch.stack(tu + tv + tw, -1)
+    if colors_precomp is not None:
+        rgb = colors_precomp
+    else:
+        rgb = sh_ops.sh_to_rgb_color(sh_degree, shs, means3d, cam.campos)
+    if rgb.shape != (n, 3):
+        raise ValueError(f"colors must be ({n}, 3), got {tuple(rgb.shape)}")
+    return PreprocessedSurfels(
+        means2d=means2d, depths=p_view[:, 2], radii=radii, transmat=transmat,
+        normal=normal, opacity=opacities, rgb=rgb, rect_min=rect_min,
+        rect_max=rect_max, tiles_touched=tiles)
+
+
+class _PreprocessSurfels(torch.autograd.Function):
+    """The surfel variant of the forward and backward kernels: means2d,
+    transmat, normal and rgb differentiable in the means, the two scales,
+    the rotations, the SH rows and the offset. Saves only its inputs: the
+    backward recomputes the forward."""
+
+    @staticmethod
+    def forward(ctx, means3d, scales, rotations, opacities, shs, offset,
+                view, full_proj, campos, meta):
+        global launches
+        (sh_degree, width, height, tiles_x, tiles_y, block_x, block_y,
+         scale_modifier) = meta
+        n = means3d.shape[0]
+        dev = means3d.device
+        f32 = dict(dtype=torch.float32, device=dev)
+        i32 = dict(dtype=torch.int32, device=dev)
+        means2d = torch.empty((n, 2), **f32)
+        depths = torch.empty((n,), **f32)
+        radii = torch.empty((n,), **i32)
+        transmat = torch.empty((n, 9), **f32)
+        normal = torch.empty((n, 3), **f32)
+        rgb = torch.empty((n, 3) if shs is not None else (0,), **f32)
+        rect_min = torch.empty((n, 2), **i32)
+        rect_max = torch.empty((n, 2), **i32)
+        tiles = torch.empty((n,), **i32)
+        _build.launch(
+            "preprocess_surfel_fwd", _SFWD_ARGS, dev, means3d.data_ptr(),
+            scales.data_ptr(), rotations.data_ptr(), opacities.data_ptr(),
+            _ptr(shs), 0 if shs is None else shs.shape[1], sh_degree,
+            view.data_ptr(), full_proj.data_ptr(), campos.data_ptr(),
+            _ptr(offset), n, width, height, tiles_x, tiles_y, block_x,
+            block_y, scale_modifier, means2d.data_ptr(), depths.data_ptr(),
+            radii.data_ptr(), transmat.data_ptr(), normal.data_ptr(),
+            None if shs is None else rgb.data_ptr(), rect_min.data_ptr(),
+            rect_max.data_ptr(), tiles.data_ptr(), library="preprocess_fwd")
+        launches += 1
+        ctx.save_for_backward(means3d, scales, rotations, shs, view,
+                              full_proj, campos)
+        ctx.meta = meta
+        ctx.has_offset = offset is not None
+        ctx.mark_non_differentiable(depths, radii, rect_min, rect_max, tiles)
+        if shs is None:
+            ctx.mark_non_differentiable(rgb)
+        ctx.set_materialize_grads(False)
+        return (means2d, depths, radii, transmat, normal, rgb, rect_min,
+                rect_max, tiles)
+
+    @staticmethod
+    def backward(ctx, g_means2d, _depths, _radii, g_transmat, g_normal,
+                 g_rgb, *_ints):
+        global bwd_launches
+        means3d, scales, rotations, shs, view, full_proj, campos = \
+            ctx.saved_tensors
+        sh_degree, width, height = ctx.meta[:3]
+        scale_modifier = ctx.meta[7]
+        n = means3d.shape[0]
+
+        def upstream(g, cols):
+            if g is None:
+                return means3d.new_zeros((n, cols))
+            return _floats(g, "the upstream gradient", (n, cols))
+
+        g_means2d = upstream(g_means2d, 2)
+        g_transmat = upstream(g_transmat, 9)
+        g_normal = upstream(g_normal, 3)
+        g_rgb = None if shs is None else upstream(g_rgb, 3)
+        g_means = torch.empty_like(means3d)
+        g_scales = torch.empty_like(scales)
+        g_rots = torch.empty_like(rotations)
+        g_shs = None if shs is None else torch.empty_like(shs)
+        g_offset = (means3d.new_empty((n, 2)) if ctx.has_offset else None)
+        _build.launch(
+            "preprocess_surfel_bwd", _SBWD_ARGS, means3d.device,
+            means3d.data_ptr(), scales.data_ptr(), rotations.data_ptr(),
+            _ptr(shs), 0 if shs is None else shs.shape[1], sh_degree,
+            view.data_ptr(), full_proj.data_ptr(), campos.data_ptr(), n,
+            width, height, scale_modifier, g_means2d.data_ptr(),
+            g_transmat.data_ptr(), g_normal.data_ptr(), _ptr(g_rgb),
+            g_means.data_ptr(), g_scales.data_ptr(), g_rots.data_ptr(),
+            _ptr(g_shs), _ptr(g_offset), library="preprocess_bwd")
+        bwd_launches += 1
+        return (g_means, g_scales, g_rots, None, g_shs, g_offset, None, None,
+                None, None)
+
+
+def preprocess_surfels(
+    means3d: torch.Tensor,
+    scales: torch.Tensor,
+    rotations: torch.Tensor,
+    opacities: torch.Tensor,
+    shs: torch.Tensor | None,
+    sh_degree: int,
+    cam: CameraParams,
+    block_x: int,
+    block_y: int,
+    scale_modifier: float = 1.0,
+    colors_precomp: torch.Tensor | None = None,
+    means2d_offset: torch.Tensor | None = None,
+) -> PreprocessedSurfels:
+    """Preprocess N surfels (2D Gaussian Splatting) for one camera.
+
+    ``scales`` (N, 2) and ``opacities`` are activated. Per surfel: the
+    transform ``transmat`` of its (u, v, 1) to homogeneous pixels
+    (ndc2pix @ full_proj @ [[s_u t_u, s_v t_v, p], [0, 0, 1]], t_u and t_v
+    the rotation's first two columns), its view-space normal (the third
+    column) turned towards the camera, the centre and the 3-sigma radius of
+    its bounding box (2DGS's ``compute_aabb``, with the low-pass filter's
+    floor of the radius), the tile rect, the view depth and SH colours. A
+    surfel is drawn where its view depth is above 0.2, the box's
+    denominator is not 0, it is not seen exactly edge-on, its rect is not
+    empty and its opacity is above 0. ``means2d_offset`` (N, 2) adds
+    offset * (W/2, H/2) * depth to T_u's and T_v's centre entries: zero in
+    value, its gradient is 2DGS's densification statistic.
+
+    On CUDA tensors one launch of the preprocess kernels' surfel variant
+    each way (``launches``, ``bwd_launches``), on the CPU the plain
+    version ``preprocess_surfels_reference``; ``ValueError`` for inputs
+    the kernels do not take."""
+    n = means3d.shape[0]
+    dev = means3d.device
+    if dev.type == "cpu":
+        return preprocess_surfels_reference(
+            means3d, scales, rotations, opacities, shs, sh_degree, cam,
+            block_x, block_y, scale_modifier, colors_precomp=colors_precomp,
+            means2d_offset=means2d_offset)
+    if dev.type != "cuda":
+        raise ValueError(f"no surfel preprocess kernels for device {dev}")
+    sh_degree, flat = _kernel_colours(n, shs, sh_degree, colors_precomp)
+    args = [_floats(means3d, "means3d", (n, 3)),
+            _floats(scales, "scales", (n, 2)),
+            _floats(rotations, "rotations", (n, 4)),
+            _floats(opacities, "opacities", (n,)),
+            flat,
+            None if means2d_offset is None
+            else _floats(means2d_offset, "means2d_offset", (n, 2))]
+    if any(a is not None and a.device != dev for a in args):
+        raise ValueError("the inputs must be on one device")
+    tiles_x = (cam.width + block_x - 1) // block_x
+    tiles_y = (cam.height + block_y - 1) // block_y
+    meta = (sh_degree, cam.width, cam.height, tiles_x, tiles_y, block_x,
+            block_y, float(scale_modifier))
+    (means2d, depths, radii, transmat, normal, rgb, rect_min, rect_max,
+     tiles) = _PreprocessSurfels.apply(
+        *args, _camera_tensor(cam.view, dev),
+        _camera_tensor(cam.full_proj, dev), _camera_tensor(cam.campos, dev),
+        meta)
+    if colors_precomp is not None:
+        rgb = colors_precomp
+    return PreprocessedSurfels(
+        means2d=means2d, depths=depths, radii=radii, transmat=transmat,
+        normal=normal, opacity=opacities, rgb=rgb, rect_min=rect_min,
+        rect_max=rect_max, tiles_touched=tiles)

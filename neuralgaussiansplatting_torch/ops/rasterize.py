@@ -15,6 +15,10 @@ Backends:
 
 The route depends on the settings alone (``blend_route``), and
 ``blend_tiles`` runs it: both kernel routes through one autograd Function.
+``rasterize_surfels`` renders 2D Gaussian Splatting's surfels through the
+same stages and Function: the preprocess kernels' surfel variant, binning
+without the conic cull, and the surfel blend kernels of 32x32 tiles
+(``ops/surfel_blend.py``).
 ``blend_seq.launches`` and ``blend_pallas.launches`` show which kernel ran.
 The preprocess before the blend runs its own kernels on every backend
 (``preprocess.launches``, ``preprocess.bwd_launches``), except with
@@ -39,6 +43,7 @@ from neuralgaussiansplatting_torch.ops import blend_pallas
 from neuralgaussiansplatting_torch.ops import blend_seq
 from neuralgaussiansplatting_torch.ops import preprocess as pp
 from neuralgaussiansplatting_torch.ops import projection as proj
+from neuralgaussiansplatting_torch.ops import surfel_blend
 from neuralgaussiansplatting_torch.utils import timing
 
 
@@ -235,6 +240,105 @@ def rasterize(
             color=assemble(color).permute(2, 0, 1),
             final_t=assemble(res.final_t),
             n_contrib=assemble(res.n_contrib),
+            radii=pre.radii,
+            num_rendered=inst.num_rendered,
+            max_per_tile=inst.max_tile_load,
+            aligned_demand=inst.aligned_demand,
+            dropped=inst.dropped,
+            culled=inst.culled,
+        )
+
+
+class SurfelRenderOutput(NamedTuple):
+    color: torch.Tensor          # (3, H, W) composited image
+    alpha: torch.Tensor          # (H, W) 1 - final T
+    normal: torch.Tensor         # (3, H, W) view-space normal sum
+    depth: torch.Tensor          # (H, W) depth sum (sum w z)
+    median: torch.Tensor         # (H, W) median depth, 0 where none
+    dist: torch.Tensor           # (H, W) distortion sum
+    final_t: torch.Tensor        # (H, W)
+    n_contrib: torch.Tensor      # (H, W) int32
+    radii: torch.Tensor          # (N,) int32 (0 => culled)
+    num_rendered: torch.Tensor
+    max_per_tile: torch.Tensor
+    aligned_demand: torch.Tensor
+    dropped: torch.Tensor
+    culled: torch.Tensor
+
+
+def rasterize_surfels(
+    means3d: torch.Tensor,
+    scales: torch.Tensor,
+    rotations: torch.Tensor,
+    opacities: torch.Tensor,
+    shs: torch.Tensor | None,
+    sh_degree: int,
+    cam: pp.CameraParams,
+    bg: torch.Tensor,
+    settings: RasterizeSettings = RasterizeSettings(),
+    means2d_offset: torch.Tensor | None = None,
+    colors_precomp: torch.Tensor | None = None,
+) -> SurfelRenderOutput:
+    """Render N surfels (2D Gaussian Splatting) for one camera: ``scales``
+    (N, 2) and ``opacities`` (N,) activated, the rest as ``rasterize``.
+
+    The preprocess's surfel variant (``preprocess.preprocess_surfels``),
+    then binning of each surfel's square rect without the per-instance
+    conic cull (a surfel has no conic; ``precise_cull`` and
+    ``tight_culling`` are the 3DGS rasterizer's and are not read), then
+    the surfel blend of 32x32 tiles (``surfel_blend``) through the kernel
+    routes' autograd Function, then the maps assembled. Only the "seq"
+    route's layout has surfel kernels: other settings raise ValueError.
+    Spans "ngs.preprocess", "ngs.binning", "ngs.blend", as ``rasterize``.
+    """
+    if blend_route(settings) != "seq":
+        raise ValueError("the surfel blend takes the seq route's 32x32 tiles "
+                         "with chunk 128, not backend "
+                         f"{settings.backend!r} at {settings.block_x}x"
+                         f"{settings.block_y}, chunk {settings.chunk}")
+    tiles_x, tiles_y = settings.tiles_for(cam.width, cam.height)
+    with timing.span("ngs.preprocess"):
+        pre = pp.preprocess_surfels(
+            means3d, scales, rotations, opacities, shs, sh_degree, cam,
+            settings.block_x, settings.block_y, settings.scale_modifier,
+            colors_precomp=colors_precomp, means2d_offset=means2d_offset)
+    with timing.span("ngs.binning"):
+        inst = binning.bin_gaussians(
+            pre, tiles_x, tiles_y, settings.capacity, settings.max_per_tile,
+            settings.chunk, pack_keys=settings.fast_sort,
+            packed_capacity=settings.packed_capacity, precise_cull=False,
+            block_x=settings.block_x, block_y=settings.block_y,
+            width=cam.width, height=cam.height,
+            expand="scatter" if settings.expand == "auto" else settings.expand,
+            dense_cap=settings.dense_cap)
+    if inst.tile_start.shape[0] != tiles_x * tiles_y:
+        raise ValueError(f"{inst.tile_start.shape[0]} tiles binned, "
+                         f"{tiles_x * tiles_y} expected")
+
+    def assemble(per_tile):
+        return blend.assemble_image(
+            per_tile, tiles_x, tiles_y, settings.block_x, settings.block_y,
+            cam.width, cam.height)
+
+    with timing.span("ngs.blend"):
+        packed = blend.pack_gather(blend.pack_instance_attrs_t(
+            pre.means2d, pre.transmat, pre.opacity, pre.rgb, pre.normal),
+            inst.gid)
+        raw = _SeqBlend.apply(packed, inst.tile_start, inst.tile_count,
+                              inst.valid, surfel_blend.surfel_blend_fwd,
+                              surfel_blend.surfel_blend_bwd,
+                              dict(tiles_x=tiles_x))
+        final_t = raw[:, 3]
+        color = raw[:, 0:3].transpose(1, 2) + final_t[..., None] * bg
+        return SurfelRenderOutput(
+            color=assemble(color).permute(2, 0, 1),
+            alpha=assemble(1.0 - final_t),
+            normal=assemble(raw[:, 5:8].transpose(1, 2)).permute(2, 0, 1),
+            depth=assemble(raw[:, 8]),
+            median=assemble(raw[:, 12]),
+            dist=assemble(raw[:, 11]),
+            final_t=assemble(final_t),
+            n_contrib=assemble(raw[:, 4].detach().to(torch.int32)),
             radii=pre.radii,
             num_rendered=inst.num_rendered,
             max_per_tile=inst.max_tile_load,

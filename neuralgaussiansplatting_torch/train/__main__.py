@@ -32,7 +32,11 @@ trainer and serves no viewer. ``main(argv)`` returns a summary of the run
 final alive count and capacity, the viewer frames served) for callers in
 the same process.
 
-``--model scaffold`` trains Scaffold-GS instead (``train_scaffold``):
+``--model 2dgs`` trains 2D Gaussian Splatting's surfels through the same
+``Trainer`` (two scales a row, ``render_surfel``, the normal and
+distortion regularisers of ``--lambda_normal``, ``--lambda_dist`` and
+``--depth_ratio``; the split samples in the tangent plane); on one
+process. ``--model scaffold`` trains Scaffold-GS instead (``train_scaffold``):
 anchors on the voxels of the point cloud at ``--voxel_size``, a fixed
 anchor set (the original's growing and pruning are not ported).
 """
@@ -112,9 +116,13 @@ def build_parser() -> ArgumentParser:
     parser.add_argument("--profile_dir", type=str, default=None,
                         help="write a torch.profiler trace of iterations "
                              "100..110 to this directory")
-    parser.add_argument("--model", choices=("3dgs", "scaffold"),
+    parser.add_argument("--model", choices=("3dgs", "2dgs", "scaffold"),
                         default="3dgs",
-                        help="scaffold: Scaffold-GS (anchors on the voxels "
+                        help="2dgs: 2D Gaussian Splatting (surfels: two "
+                             "scales, ray-splat intersection, the normal "
+                             "and distortion regularisers) through "
+                             "Trainer.step, on the 3dgs schedule. "
+                             "scaffold: Scaffold-GS (anchors on the voxels "
                              "of the point cloud, whose MLPs decode 10 "
                              "neural Gaussians a view) through "
                              "ScaffoldTrainer.step on a fixed anchor set: "
@@ -124,6 +132,16 @@ def build_parser() -> ArgumentParser:
                              "(scaffold/iteration_N/scaffold.pt)")
     parser.add_argument("--voxel_size", type=float, default=0.001,
                         help="--model scaffold: the anchors' voxel size")
+    parser.add_argument("--lambda_normal", type=float, default=0.05,
+                        help="--model 2dgs: the normal-consistency weight, "
+                             "from iteration 7001")
+    parser.add_argument("--lambda_dist", type=float, default=0.0,
+                        help="--model 2dgs: the depth-distortion weight, "
+                             "from iteration 3001")
+    parser.add_argument("--depth_ratio", type=float, default=0.0,
+                        help="--model 2dgs: the surface depth's mix, 0 the "
+                             "expected depth (unbounded scenes), 1 the "
+                             "median (bounded ones)")
     return parser
 
 
@@ -289,7 +307,10 @@ def train(args, dataset: config.ModelParams, device: torch.device) -> dict:
             except ImportError:
                 print("tensorboard not available: not logging progress")
 
-        gaussians = gm.GaussianModel(dataset.sh_degree, device=device)
+        if args.model == "2dgs" and args.data_parallel > 1:
+            raise SystemExit("--model 2dgs trains on one process")
+        gaussians = gm.GaussianModel(dataset.sh_degree, device=device,
+                                     surfel=args.model == "2dgs")
         # only rank 0 writes the scene's files (input.ply, cameras.json)
         scene = Scene(dataset.source_path,
                       dataset.model_path if is_main else "", gaussians,
@@ -312,7 +333,9 @@ def train(args, dataset: config.ModelParams, device: torch.device) -> dict:
             cameras_extent=scene.cameras_extent,
             debug=pipe.debug, debug_from=args.debug_from,
             snapshot_dir=dataset.model_path,
-            tune_interval=args.tune_interval)
+            tune_interval=args.tune_interval,
+            lambda_normal=args.lambda_normal, lambda_dist=args.lambda_dist,
+            depth_ratio=args.depth_ratio)
         return train_loop(args, scene, trainer, device, tb_writer, gui)
     finally:
         if gui is not None:

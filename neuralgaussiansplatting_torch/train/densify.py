@@ -20,6 +20,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
 
 from neuralgaussiansplatting_torch.models.gaussians import (
     GaussianParams, GaussianState, get_opacity, get_scaling,
@@ -96,8 +97,9 @@ def densify_and_prune(
 ):
     """One density-control round: (params, state, opt_state, report).
 
-    A split draws two standard-normal (P, 3) samples, from ``generator``
-    (on the parameters' device) unless ``noise`` gives them.
+    A split draws two standard-normal (P, D) samples, D the scales a row
+    (3, or 2 for surfels), from ``generator`` (on the parameters' device)
+    unless ``noise`` gives them.
     """
     capacity = params.xyz.shape[0]
     alive = state.alive
@@ -136,13 +138,17 @@ def densify_and_prune(
 
     # split: two N(mean, scale) samples rotated into world space; sample A
     # replaces the original row, sample B goes to a free slot; both take
-    # scaling / (0.8 * 2)
+    # scaling / (0.8 * 2). A surfel (two scales) samples in its tangent
+    # plane: the third deviation is 0, as in 2D Gaussian Splatting.
     if noise is None:
         noise = tuple(torch.randn(scal.shape, generator=generator,
                                   device=scal.device) for _ in range(2))
     rot = quat_to_rotmat(params.rotation)
-    samp_a = params.xyz + torch.einsum("nij,nj->ni", rot, noise[0] * scal)
-    samp_b = params.xyz + torch.einsum("nij,nj->ni", rot, noise[1] * scal)
+    pad = (0, 3 - scal.shape[-1])
+    samp_a = params.xyz + torch.einsum("nij,nj->ni", rot,
+                                       F.pad(noise[0] * scal, pad))
+    samp_b = params.xyz + torch.einsum("nij,nj->ni", rot,
+                                       F.pad(noise[1] * scal, pad))
     new_scaling = torch.log(scal / (0.8 * 2))
 
     split_src = params._replace(xyz=samp_b, scaling=new_scaling)

@@ -77,16 +77,30 @@ def tune_capacity(settings: rast.RasterizeSettings, num_rendered: int,
     return settings, changed
 
 
+class SurfelTerms(NamedTuple):
+    """2D Gaussian Splatting's regularisers of a surfel step: the weights
+    of the normal-consistency and depth-distortion terms and the surface
+    depth's mix of the median depth (``losses.surfel_loss``)."""
+
+    lambda_normal: float
+    lambda_dist: float
+    depth_ratio: float
+
+
 def train_step(ts: TrainState, cam, gt: torch.Tensor, bg: torch.Tensor, *,
                tx: optim.Adam, sh_degree: int,
-               settings: rast.RasterizeSettings, lambda_dssim: float):
+               settings: rast.RasterizeSettings, lambda_dssim: float,
+               surfel: SurfelTerms | None = None):
     """One render + loss + gradient + Adam + statistics step.
 
     Returns (new TrainState, metrics); the metrics are tensors on the
     device (nothing is read back to the host here). Under a profiler the
     stages are the spans "ngs.render" (and its parts), "ngs.loss",
     "ngs.backward" and "ngs.optimizer" (Adam with the dead-slot select,
-    statistics).
+    statistics). A model of surfels (two scales a row) renders by
+    ``render_surfel``, and ``surfel``'s regularisers join the loss (span
+    "ngs.surfel_reg"); its metrics add "maps", the render's normal, depth
+    and distortion maps, detached.
     """
     params = ts.params
     n = params.xyz.shape[0]
@@ -99,6 +113,8 @@ def train_step(ts: TrainState, cam, gt: torch.Tensor, bg: torch.Tensor, *,
                  means2d_offset=offset)
     with timing.span("ngs.loss"):
         loss = losses.photometric_loss(out["render"], gt, lambda_dssim)
+    if surfel is not None:
+        loss = losses.surfel_loss(loss, out, cam, *surfel)
     inputs = list(leaves.values()) + [offset]
     with timing.span("ngs.backward"):
         grads = torch.autograd.grad(loss, inputs, allow_unused=True)
@@ -126,26 +142,35 @@ def train_step(ts: TrainState, cam, gt: torch.Tensor, bg: torch.Tensor, *,
         "culled": out["culled"],
         "radii_max": out["radii"].max(),
     }
+    if "rend_normal" in out:
+        metrics["maps"] = {k: out[k].detach() for k in (
+            "rend_normal", "rend_depth", "rend_dist", "rend_alpha")}
     return TrainState(new_params, gstate, opt_state, ts.step + 1), metrics
 
 
 def train_steps(ts: TrainState, cams, gts: torch.Tensor, bgs: torch.Tensor,
                 *, tx: optim.Adam, sh_degree: int,
-                settings: rast.RasterizeSettings, lambda_dssim: float):
+                settings: rast.RasterizeSettings, lambda_dssim: float,
+                surfel: SurfelTerms | None = None):
     """B sequential ``train_step``s: camera i of the stacked ``cams``
     (``parallel.train_step.stack_cameras``), ground truth ``gts[i]`` of the
     (B, 3, H, W) stack and background ``bgs[i]`` of the (B, 3) one. The
     same state chain as B ``train_step`` calls, bit for bit. Nothing is
     read back to the host inside the block: each step's inputs are views
     of the stacks, and the metrics stay on the device, stacked along B
-    once at the end. Returns (final TrainState, {name: (B,) tensor})."""
+    once at the end (surfel steps' maps as a list of B). Returns (final
+    TrainState, {name: (B,) tensor})."""
     steps = []
     for i in range(gts.shape[0]):
         ts, metrics = train_step(ts, cams.camera(i), gts[i], bgs[i], tx=tx,
                                  sh_degree=sh_degree, settings=settings,
-                                 lambda_dssim=lambda_dssim)
+                                 lambda_dssim=lambda_dssim, surfel=surfel)
         steps.append(metrics)
-    return ts, {k: torch.stack([m[k] for m in steps]) for k in steps[0]}
+    out = {k: torch.stack([m[k] for m in steps])
+           for k in steps[0] if k != "maps"}
+    if "maps" in steps[-1]:
+        out["maps"] = [m["maps"] for m in steps]
+    return ts, out
 
 
 def densify_step(ts: TrainState, generator: torch.Generator,
@@ -181,6 +206,15 @@ class Trainer:
     tune_interval: int = 500
     min_capacity: int = 1 << 16
     max_capacity: int = 1 << 23
+    # 2D Gaussian Splatting's regularisers, read where the model holds
+    # surfels (two scales a row): the normal term from iteration
+    # NORMAL_FROM + 1, the distortion from DIST_FROM + 1, as 2DGS's train.py
+    lambda_normal: float = 0.05
+    lambda_dist: float = 0.0
+    depth_ratio: float = 0.0
+
+    NORMAL_FROM = 7000
+    DIST_FROM = 3000
 
     def __post_init__(self):
         params = self.gaussians.params
@@ -233,6 +267,16 @@ class Trainer:
             metrics = self.grad_step(cam, gt_image, iteration)
             return self.apply_schedule(iteration, metrics)
 
+    def surfel_terms(self, iteration: int) -> SurfelTerms | None:
+        """The regularisers of ``iteration`` for a model of surfels, None
+        for 3D Gaussians."""
+        if self.ts.params.scaling.shape[-1] != 2:
+            return None
+        return SurfelTerms(
+            self.lambda_normal if iteration > self.NORMAL_FROM else 0.0,
+            self.lambda_dist if iteration > self.DIST_FROM else 0.0,
+            self.depth_ratio)
+
     def grad_step(self, cam, gt_image, iteration: int):
         """SH warm-up, then one ``train_step``."""
         if iteration % 1000 == 0:
@@ -246,7 +290,8 @@ class Trainer:
         self.ts, metrics = train_step(
             self.ts, cam, gt_image, bg, tx=self.tx,
             sh_degree=self.gaussians.active_sh_degree,
-            settings=self.settings, lambda_dssim=self.opt.lambda_dssim)
+            settings=self.settings, lambda_dssim=self.opt.lambda_dssim,
+            surfel=self.surfel_terms(iteration))
 
         if self.debug and (self.debug_from < 0 or iteration >= self.debug_from):
             # reads the loss back: a wait on the device every iteration
@@ -325,7 +370,8 @@ class Trainer:
         self.ts, stacked = train_steps(
             self.ts, cams, gts, bgs, tx=self.tx,
             sh_degree=self.gaussians.active_sh_degree,
-            settings=self.settings, lambda_dssim=self.opt.lambda_dssim)
+            settings=self.settings, lambda_dssim=self.opt.lambda_dssim,
+            surfel=self.surfel_terms(first_iteration))
         return {k: v[-1] for k, v in stacked.items()}
 
     def apply_schedule_block(self, it0: int, it1: int, metrics):
@@ -476,7 +522,8 @@ def training(scene, trainer: Trainer, iterations: int,
 
         metrics = trainer.step(cp, gt, iteration)
         if iteration % log_every == 0 or iteration == iterations:
-            m = {k: float(v) for k, v in metrics.items() if k != "densify"}
+            m = {k: float(v) for k, v in metrics.items()
+                 if k not in ("densify", "maps")}
             m["iter"] = iteration
             m["elapsed"] = time.time() - t0
             m["alive"] = int(trainer.ts.gstate.alive.sum())

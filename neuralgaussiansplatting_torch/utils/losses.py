@@ -22,6 +22,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from neuralgaussiansplatting_torch.utils import timing
+
 
 def l1_loss(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
     return torch.abs(pred - gt).mean()
@@ -113,3 +115,71 @@ def photometric_loss(pred: torch.Tensor, gt: torch.Tensor,
     """(1 - lambda) L1 + lambda (1 - SSIM)."""
     return ((1.0 - lambda_dssim) * l1_loss(pred, gt)
             + lambda_dssim * (1.0 - ssim(pred, gt)))
+
+
+@functools.lru_cache(maxsize=None)
+def _pixel_grid(height: int, width: int, device: torch.device):
+    """(H, W, 3) float32 (x, y, 1) of every pixel, made once per size and
+    device."""
+    gy, gx = torch.meshgrid(torch.arange(height, dtype=torch.float32,
+                                         device=device),
+                            torch.arange(width, dtype=torch.float32,
+                                         device=device), indexing="ij")
+    return torch.stack([gx, gy, torch.ones_like(gx)], -1)
+
+
+def _inverse3(a: torch.Tensor) -> torch.Tensor:
+    """The inverse of a (3, 3) matrix by its adjugate: tensor operations on
+    its device, with nothing read back to the host."""
+    r0, r1, r2 = a
+    adj = torch.stack([torch.linalg.cross(r1, r2), torch.linalg.cross(r2, r0),
+                       torch.linalg.cross(r0, r1)], 1)
+    return adj / torch.dot(r0, adj[:, 0])
+
+
+def depth_to_normal(cam, depth: torch.Tensor) -> torch.Tensor:
+    """(3, H, W) world normals of the (H, W) depth map of ``cam`` (a
+    ``CameraParams``), as 2DGS's ``depth_to_normal``: each pixel unprojected
+    along its ray (the projection's focal lengths, the principal point at
+    (W / 2, H / 2)) to depth times the ray plus the camera centre, the cross
+    product of the central differences along the rows and the columns,
+    normalised; zero on the border. The view is rigid, so the projection of
+    camera space is full_proj's first columns times the view's rotation
+    transposed. Nothing is read back to the host."""
+    h, w = depth.shape
+    rot_t = cam.view[:3, :3].T
+    proj = cam.full_proj[:, :3] @ rot_t
+    intr = torch.stack([(w / 2.0) * proj[0] + (w / 2.0) * proj[3],
+                        (h / 2.0) * proj[1] + (h / 2.0) * proj[3], proj[3]])
+    ray = rot_t @ _inverse3(intr)
+    dirs = _pixel_grid(h, w, depth.device) @ ray.T
+    pts = depth[..., None] * dirs + cam.campos
+    dx = pts[2:, 1:-1] - pts[:-2, 1:-1]
+    dy = pts[1:-1, 2:] - pts[1:-1, :-2]
+    nrm = F.normalize(torch.cross(dx, dy, dim=-1), dim=-1)
+    return F.pad(nrm.permute(2, 0, 1), (1, 1, 1, 1))
+
+
+def surfel_loss(loss: torch.Tensor, out: dict, cam, lambda_normal: float,
+                lambda_dist: float, depth_ratio: float) -> torch.Tensor:
+    """``loss`` plus 2D Gaussian Splatting's two regularisers of a surfel
+    render ``out`` (``gaussian_renderer.render_surfel``'s maps):
+    lambda_dist x the distortion map's mean, then lambda_normal x the mean
+    of 1 - n_rendered . n_surf, n_rendered the normal map in world space
+    and n_surf ``depth_to_normal`` of the surface depth (the expected depth
+    sum / alpha where ``depth_ratio`` is 0, the median depth where it is 1;
+    NaN and infinity read as 0) times alpha, detached. A term of weight 0
+    is not computed. Span "ngs.surfel_reg"."""
+    with timing.span("ngs.surfel_reg"):
+        if lambda_dist:
+            loss = loss + lambda_dist * out["rend_dist"].mean()
+        if lambda_normal:
+            alpha = out["rend_alpha"]
+            nw = torch.einsum("ji,jhw->ihw", cam.view[:3, :3],
+                              out["rend_normal"])
+            expected = torch.nan_to_num(out["rend_depth"] / alpha, 0.0, 0.0)
+            median = torch.nan_to_num(out["rend_median"], 0.0, 0.0)
+            surf = expected * (1 - depth_ratio) + depth_ratio * median
+            sn = depth_to_normal(cam, surf) * alpha.detach()
+            loss = loss + lambda_normal * (1 - (nw * sn).sum(0)).mean()
+        return loss
