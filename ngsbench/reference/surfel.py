@@ -338,6 +338,7 @@ def composite_block(scr: dict, bins: ref.Bins, tiles, length: int,
             inst = visited.any(2)
             counts["fwd_pairs"] += int(visited.sum())
             counts["blended"] += int(blended.sum())
+            counts["on3d"] += int((blended & on3d).sum())
             k = bins.per_tile
             t32 = ((tiles // bins.tiles_x) // k) * (bins.tiles_x // k) + (
                 tiles % bins.tiles_x) // k
@@ -368,7 +369,8 @@ def render(cloud: dict, cam, sh_degree: int, bg: torch.Tensor, tile: int,
            pair_budget: int = PAIR_BUDGET, sub: int = SUB) -> dict:
     """{"maps": {name: detached map}, "screen", "bins", "blocks"[,
     "counts"]}: the surfels of ``cloud`` seen by ``cam``; ``counts`` as
-    ``render.render``'s."""
+    ``render.render``'s, and "on3d", the blended pairs whose alpha the
+    ray-splat intersection set (rho3d <= rho2d)."""
     scr = project(cloud, cam, sh_degree, tile, dtype, sub)
     with torch.no_grad():
         bins = ref.bin_tiles(_screen(scr), cam.width, cam.height, tile)
@@ -380,7 +382,8 @@ def render(cloud: dict, cam, sh_degree: int, bg: torch.Tensor, tile: int,
                "normal": torch.zeros((n, pix, 3), dtype=dtype, device=dev)}
         for name in ("depth", "median", "dist"):
             out[name] = torch.zeros((n, pix), dtype=dtype, device=dev)
-        c = {"fwd_pairs": 0, "blended": 0, "keys": []} if counts else None
+        c = ({"fwd_pairs": 0, "blended": 0, "on3d": 0, "keys": []} if counts
+             else None)
         blocks = ref._blocks(bins.count, pix, pair_budget)
         for tiles, length in blocks:
             part = composite_block(scr, bins, tiles, length, bg, c, affine)

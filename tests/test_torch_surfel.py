@@ -110,20 +110,23 @@ def test_the_affine_splat_fails_the_tolerances(case):
     assert max(grads.values()) > 10 * GRAD_TOL, grads
 
 
-def test_one_trainer_step_matches_the_reference():
+def _trainer_step_against_the_reference(depth_ratio: float):
     """``Trainer.step`` at iteration 15001 (both regularisers on, lambda_d
-    100) against one reference step: the loss, the first gradient (Adam's
-    first moment over 1 - beta1) and the norm of Adam's change."""
+    100, the surface depth by ``depth_ratio``) against one reference step:
+    the loss, the first gradient (Adam's first moment over 1 - beta1) and
+    the norm of Adam's change."""
     leaves = sc.cloud(N, 3, log_scale=math.log(0.08))
     cam = sc.camera(W, H, pos=(-0.5, -0.3, -3.2))
     gt = torch.rand((3, H, W), generator=torch.Generator().manual_seed(4))
     model = sc.model({k: v.clone() for k, v in leaves.items()})
     tr = loop.Trainer(gaussians=model, opt=optim.OptimizationParams(),
                       settings=_settings(), cameras_extent=2.0,
-                      lambda_normal=0.05, lambda_dist=100.0)
+                      lambda_normal=0.05, lambda_dist=100.0,
+                      depth_ratio=depth_ratio)
     m = tr.step(sc.port_camera(cam, "cpu"), gt, 15001)
     r = ref.steps(leaves, [cam], [gt], torch.zeros(3), sh_degree=3, tile=32,
-                  extent=2.0, lambda_normal=0.05, lambda_dist=100.0)
+                  extent=2.0, lambda_normal=0.05, lambda_dist=100.0,
+                  depth_ratio=depth_ratio)
     assert abs(float(m["loss"]) - r["loss"][0]) <= 1e-5 * r["loss"][0]
     grads = {k: tr.ts.opt_state[k].mu / (1 - tr.tx.b1) for k in leaves}
     gaps = _grad_gaps(grads, r["grad"])
@@ -133,6 +136,19 @@ def test_one_trainer_step_matches_the_reference():
         assert abs(moved - r["change_norm"][k]) <= 1e-3 * r["change_norm"][k]
     assert set(m["maps"]) == {"rend_normal", "rend_depth", "rend_dist",
                               "rend_alpha"}
+    return r
+
+
+def test_one_trainer_step_matches_the_reference():
+    _trainer_step_against_the_reference(0.0)
+
+
+def test_one_trainer_step_on_the_median_depth_matches_the_reference():
+    """depth_ratio 1 (the 2DGS repository's setting for bounded scenes):
+    the normal term reads the median depth, whose gradient reaches the
+    surfels through the median pair's depth."""
+    r = _trainer_step_against_the_reference(1.0)
+    assert float(r["maps"][0]["median"].abs().max()) > 0
 
 
 def test_the_regularisers_start_at_their_iterations():
